@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+These tests need an NVIDIA GPU and nvcc and skip elsewhere.  The machine
+with the card has no JAX, and tests/conftest.py imports it, so run them
+there without the conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+This file imports torch and the port only.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from jnerf_tpu_torch.ops import hash_nbr
+from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
+
+pytestmark = pytest.mark.cuda
+
+# (L, F, log2 size, desired resolution, cap): dense + pow2 hashed levels,
+# F in {1, 2, 4, 8}, and a non-pow2 cap (hashed levels take a real modulo).
+SPECS = {
+    "f1l8": (8, 1, 12, 512.0, None),
+    "f2l4": (4, 2, 10, 64.0, None),
+    "f4l8": (8, 4, 13, 512.0, None),
+    "f8l4": (4, 8, 13, 256.0, None),
+    "f8l4cap3000": (4, 8, 12, 256.0, 3000),
+}
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _spec(name):
+    L, F, log2, des, cap = SPECS[name]
+    return HashGridSpec(n_levels=L, n_features_per_level=F, base_resolution=4,
+                        log2_hashmap_size=log2, desired_resolution=des,
+                        max_level_size=cap)
+
+
+def _inputs(spec, dev, n=4096, seed=0):
+    """Table ~N(0, 0.1); positions in [0, 1], 256 of them on a level-1 cell
+    border (where an FMA would move them to the neighbouring cell)."""
+    rng = np.random.default_rng(seed)
+    F, L = spec.n_features_per_level, spec.n_levels
+    table = (rng.normal(size=(spec.n_entries, F)) * 0.1).astype(np.float32)
+    pos = rng.uniform(size=(n, 3)).astype(np.float32)
+    s = np.float32(spec.scales[1])
+    pos[:256] = (np.floor(pos[:256] * s + 0.5) - 0.5) / s
+    pos = np.clip(pos, 0.0, 1.0).astype(np.float32)
+    g = rng.normal(size=(n, F * L)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (table, pos, g))
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+def test_kernels_match_plain(dev, name):
+    """Kernel F equals its twin but for a rare bf16 rounding flip of one
+    corner product (atol 1e-3 at |table| ~ 0.1), with 0 base-entry
+    mismatches; kernel B agrees up to the atomics' summation order (1e-5
+    of the largest gradient)."""
+    spec = _spec(name)
+    table, pos, g = _inputs(spec, dev)
+    e0k = torch.zeros((pos.shape[0], spec.n_levels), dtype=torch.int32,
+                      device=dev)
+    e0p = torch.zeros_like(e0k)
+    fk = hash_nbr.encode_fwd(spec, table, pos, e0_out=e0k)
+    fp = hash_nbr.hash_encode_plain(spec, table, pos, e0_out=e0p)
+    bk = hash_nbr.grad_table(spec, pos, g)
+    bp = hash_nbr.grad_table_plain(spec, pos, g)
+    torch.cuda.synchronize()
+    assert int((e0k != e0p).sum()) == 0
+    assert float((fk - fp).abs().max()) <= 1e-3
+    assert float((bk - bp).abs().max()) <= 1e-5 * float(bp.abs().max())
+
+
+def test_autograd_goes_through_both_kernels(dev):
+    """The autograd.Function launches kernel F forward and kernel B
+    backward, and its table gradient matches the twin's on the upstream
+    gradient that reaches it: cos(out), rounded to bf16 by the backward of
+    the bf16 cast."""
+    spec = _spec("f8l4")
+    table, pos, _ = _inputs(spec, dev)
+    f0, b0 = hash_nbr.encode_fwd.launches, hash_nbr.grad_table.launches
+    tab = table.clone().requires_grad_(True)
+    out = hash_nbr.hash_encode_nbr(spec, tab, pos, torch.bfloat16)
+    torch.sin(out.float()).sum().backward()
+    assert hash_nbr.encode_fwd.launches == f0 + 1
+    assert hash_nbr.grad_table.launches == b0 + 1
+    g = torch.cos(out.detach().float()).to(torch.bfloat16).float()
+    ref = hash_nbr.grad_table_plain(spec, pos, g)
+    assert float((tab.grad - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_wrappers_refuse_bad_inputs(dev):
+    """A CUDA tensor the kernel cannot take raises; it is never computed
+    another way."""
+    spec = _spec("f2l4")
+    table, pos, g = _inputs(spec, dev)
+    with pytest.raises(ValueError):
+        hash_nbr.encode_fwd(spec, table.double(), pos)
+    with pytest.raises(ValueError):
+        hash_nbr.encode_fwd(spec, table, pos.t().contiguous().t())
+    with pytest.raises(ValueError):
+        hash_nbr.grad_table(spec, pos, g[:, :3].contiguous())
+    f6 = HashGridSpec(n_levels=2, n_features_per_level=6, log2_hashmap_size=10)
+    with pytest.raises(ValueError, match="F in"):
+        hash_nbr.encode_fwd(f6, torch.zeros((f6.n_entries, 6), device=dev), pos)

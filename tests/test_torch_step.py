@@ -1,0 +1,149 @@
+"""The PyTorch port's whole NGP training step against the JAX package's,
+plus the port's own runner contract (imports, devices, a short run)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+
+from torch_parity import (  # noqa: F401
+    both_cfgs, jax_key_draws, n, port_grid_state, t,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _grad_capture():
+    """An optax transform that applies no update and keeps the gradients
+    it was given in its state, so the JAX step's gradients can be read."""
+    return optax.GradientTransformation(
+        init=lambda p: {"g": jax.tree.map(jnp.zeros_like, p)},
+        update=lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), {"g": g}),
+    )
+
+
+def test_one_step_loss_and_grads_match_jax(both_cfgs):
+    """One f8l4 training step with compaction (256 rays, 32 samples/ray, a
+    1024-sample cap) on the same params, the same grid state (the JAX
+    step-0 refresh, converted) and the same draws (pixels, march jitter,
+    background from the JAX step's key).  Compared: the loss and the
+    gradients, not the updated params (Adam moves every param with a
+    nonzero gradient by ~lr, so rounding noise in tiny gradients would show
+    as 0.2 steps).  The bf16 MLP chain rounds the same operands in both, but
+    f32 sums in another order can move an activation or a cotangent by one
+    bf16 ulp (2^-8); a weight gradient sums many such terms with
+    cancellation, so single entries can move by ~1% of the tensor's largest
+    gradient while the bulk agrees: loss rtol 1e-3; per gradient tensor,
+    max |diff| <= 2e-2 and mean |diff| <= 1e-3 of its largest entry."""
+    from jnerf_tpu.runner import Runner as JaxRunner
+    from jnerf_tpu_torch.runner import Runner
+    from jnerf_tpu_torch.utils.convert import (
+        jax_params_to_state_dict, state_dict_to_jax_params,
+    )
+
+    jr = JaxRunner()
+    jr._update_grid(0, jax.random.PRNGKey(1))
+    jr.tx, jr.ema = _grad_capture(), None
+    tr = Runner(device="cpu")
+    tr.model.load_state_dict(
+        jax_params_to_state_dict(jax.tree.map(np.asarray, jr.params)))
+    tr.sampler.load_state_dict(port_grid_state(jr.sampler.state))
+
+    n_rays, n_samples = jr.sampler.n_rays_per_batch, jr.sampler.n_samples_per_ray
+    assert (n_rays, n_samples) == (tr.sampler.n_rays_per_batch,
+                                   tr.sampler.n_samples_per_ray) == (256, 32)
+    assert n_rays * n_samples > tr.sampler.compacted_batch  # compaction on
+    step = jax.jit(jr._step_fn_body(n_rays, n_samples))
+    key = jax.random.PRNGKey(7)
+    _, opt_state, _, _, jloss = step(jr.params, jr.tx.init(jr.params), None,
+                                     jr.sampler.state, jr._train_data(), key)
+
+    ds = tr.dataset["train"]
+    idx, u, bg = jax_key_draws(key, n_rays, ds.n_images * ds.H * ds.W)
+    total, main, samples = tr.forward_loss(n_rays, n_samples,
+                                           idx=t(idx, torch.int64), bg=t(bg),
+                                           u=t(u))
+    assert int(samples.valid.sum()) > tr.sampler.compacted_batch
+    np.testing.assert_allclose(float(main.detach()), float(jloss), rtol=1e-3)
+    total.backward()
+    jgrads = state_dict_to_jax_params(
+        jax_params_to_state_dict(jax.tree.map(np.asarray, opt_state["g"])))
+    grads = state_dict_to_jax_params(
+        {name: p.grad for name, p in tr.model.named_parameters()})
+    for (path, got), ref in zip(jax.tree_util.tree_leaves_with_path(grads),
+                                jax.tree.leaves(jgrads)):
+        scale = float(np.abs(ref).max())
+        assert scale > 0, path
+        diff = np.abs(got - ref)
+        name = jax.tree_util.keystr(path)
+        assert diff.max() <= 2e-2 * scale, (name, diff.max() / scale)
+        assert diff.mean() <= 1e-3 * scale, (name, diff.mean() / scale)
+
+
+def test_train_range_runs_and_adapts(both_cfgs):
+    """48 steps on the CPU: the step-0 full sweep, two half sweeps, two
+    lagged batch adaptations; the losses stay finite and fall, and the
+    optimizer counts every step."""
+    from jnerf_tpu_torch.runner import Runner
+
+    tr = Runner(device="cpu")
+    losses = [float(tr.train_range(w * 16, (w + 1) * 16)) for w in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert tr.optimizer.count == 48 and tr.ema_state["steps"] == 48
+    assert tr.sampler.state["ema_step"] == 3
+    assert tr.sampler._demand_ema is not None  # adapted at step 32
+    assert tr._pending_adapt is not None
+
+
+def test_train_prints_plain_lines(both_cfgs, capsys):
+    """Runner.train runs to tot_train_steps and reports in plain lines."""
+    from jnerf_tpu_torch.runner import Runner
+
+    both_cfgs[1].tot_train_steps = 20
+    Runner(device="cpu").train()
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("STEP=20 | LOSS=")
+
+
+def test_runner_refuses_missing_cuda(both_cfgs):
+    """Runner(device='cuda') raises where CUDA is absent; it never falls
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present here")
+    from jnerf_tpu_torch.runner import Runner
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Runner(device="cuda")
+
+
+def test_port_imports_no_jax():
+    """Importing the port and training two steps pulls in none of JAX, the
+    JAX package, optax, yaml, PIL, cv2 or imageio (checked in a fresh
+    interpreter, beyond what torch itself imports)."""
+    code = """
+import sys
+import numpy, torch
+before = set(sys.modules)
+import jnerf_tpu_torch
+from jnerf_tpu_torch.runner import Runner
+from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
+cfg = ngp_synthetic_cfg(n_images=2, H=16, W=16, n_rays_per_batch=128,
+                        target_batch_size=1 << 10, grid_size=16, nerf_steps=64,
+                        hash_levels=2, hash_features=2, log2_hashmap_size=10)
+Runner(device="cpu").train_range(0, 2)
+new = {m.split(".")[0] for m in set(sys.modules) - before}
+print(sorted(new & {"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
+                    "cv2", "imageio", "tqdm"}))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
