@@ -7,15 +7,23 @@ nonzero, printing no result, without them.  Phases, each of which raises
 on failure:
 
 1. the card: its name and power limit (nvidia-smi);
-2. build the CUDA kernels from jnerf_tpu_torch/csrc;
+2. build the CUDA kernels from jnerf_tpu_torch/csrc (hash_encode.cu and
+   fused_mlp.cu, in parallel), with ptxas' register and spill lines;
 3. each kernel against its plain PyTorch twin on the card at the main
-   path's shapes (2^17 samples; f8l4 at a 2^19 level cap and f2l16 at
-   2^18), with errors, base-entry mismatches and times;
+   path's shapes, with errors and times: the hash kernels F and B at 2^17
+   samples (f8l4 at a 2^19 level cap and f2l16 at 2^18); the fused MLP
+   kernels F-MLP and D-MLP at 2^17 rows (the training M) and 2^20 rows
+   (one render chunk), B-MLP at 2^17;
 4. the slice: 48 training steps of the f8l4+m17f2k19 bench headline
    (Runner(device='cuda').train_range), with launch counts that show the
-   main path went through both kernels, steps/s and peak memory;
-5. one small training step on the card against the same step on the CPU
-   (the plain twins, which the CPU tests hold against the JAX package).
+   main path went through both hash kernels, steps/s and peak memory;
+5. the fused path: the same headline with cfg.use_pallas_mlp, 48 steps
+   (B-MLP launched once a step), then its test split rendered
+   (render_test), F-MLP launched there too, each image's PSNR, and the
+   same images rendered with the plain MLP chain for comparison;
+6. one small training step on the card against the same step on the CPU
+   (the plain twins, which the CPU tests hold against the JAX package),
+   with the plain MLP chain and with the fused kernels.
 
 The last lines are the kernel table as JSON, the card line, and
 {"ok": true, "device": {...}}.
@@ -28,11 +36,29 @@ import sys
 import time
 
 N_SAMPLES = 1 << 17  # the kept-sample cap M of the headline config
+N_RENDER = 1 << 20   # model rows of one render chunk: 4096 rays x 256 samples
 HEADLINE_STEPS = 48
 # Kernel F equals its twin but for a rare bf16 rounding flip of one corner
 # product (~5e-4 at |table| ~ 0.1); kernel B sums in the atomics' order.
 FWD_ATOL = 1e-3
 BWD_RTOL_OF_MAX = 1e-5
+# The fused MLP kernels and their twins round the same bf16 operands at the
+# same points and differ only in f32 summation order: on an H100 the
+# outputs and dx agreed within 4.8e-7 and the weight gradients (2^17-row
+# sums, per-block partials against one matmul) within 6.1e-7 of their
+# largest entry.  Bounds a few times that: a kernel that drops one bf16
+# rounding (of r1b in F-MLP, or of dr2, d_dout or dh in B-MLP) was off by
+# 1.3e-2 or more on the outputs or dx, and fails them.
+MLP_ATOL = 1e-5
+MLP_WGRAD_RTOL_OF_MAX = 1e-5
+# Fused vs plain chain render of the same field: the two forwards are the
+# same function up to f32 summation order, so they differ only where a
+# hidden activation flips by one bf16 ulp (2^-8 relative).  That moves a
+# raw output by ~1e-3 and a pixel by a fraction of that after the sigmoid
+# and the compositing; a few flips on one ray stay far below one 8-bit
+# colour level (3.9e-3).  Bounds: max |diff| 1e-2, mean |diff| 1e-4.
+RENDER_MAX_DIFF = 1e-2
+RENDER_MEAN_DIFF = 1e-4
 
 
 def card_line() -> str:
@@ -58,6 +84,12 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def time_pair(k_fn, p_fn):
+    """Plain, kernel, kernel, plain: (kernel ms, plain ms, the four)."""
+    p1, k1, k2, p2 = (cuda_ms(f) for f in (p_fn, k_fn, k_fn, p_fn))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
 def check_kernels(torch, hash_nbr, HashGridSpec):
@@ -105,14 +137,12 @@ def check_kernels(torch, hash_nbr, HashGridSpec):
         stats["fwd"]["err"] = max(stats["fwd"]["err"], f_err)
         stats["bwd"]["err"] = max(stats["bwd"]["err"], b_err)
 
-        # Plain, kernel, kernel, plain: each time is the mean of its two.
         runs = {"fwd": (lambda: hash_nbr.encode_fwd(spec, table, pos),
                         lambda: hash_nbr.hash_encode_plain(spec, table, pos)),
                 "bwd": (lambda: hash_nbr.grad_table(spec, pos, g),
                         lambda: hash_nbr.grad_table_plain(spec, pos, g))}
         for kern, (k_fn, p_fn) in runs.items():
-            p1, k1, k2, p2 = (cuda_ms(f) for f in (p_fn, k_fn, k_fn, p_fn))
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            ms, plain_ms, (k1, k2, p1, p2) = time_pair(k_fn, p_fn)
             print(f"time {kern} [{name}], N={N_SAMPLES}: kernel {ms:.4f} ms "
                   f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                   f"({p1:.4f}, {p2:.4f})", flush=True)
@@ -120,12 +150,197 @@ def check_kernels(torch, hash_nbr, HashGridSpec):
     return stats
 
 
-def run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr):
-    """Phase 4: the slice, with the kernels' launch counts from its run."""
+def check_mlp_kernels(torch, fused_mlp):
+    """Phase 3, fused MLP: F-MLP and D-MLP at the training M and at one
+    render chunk, B-MLP at the training M, against their twins."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    # Kaiming-uniform weights, as the port's init draws them.
+    ws = [(torch.rand(shp, generator=gen, device=dev) * 2 - 1)
+          * math.sqrt(6.0 / shp[0]) for shp in fused_mlp.WEIGHT_SHAPES]
+    stats = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}, "den": {"err": 0.0}}
+    for n in (N_SAMPLES, N_RENDER):
+        # bf16 feature rows, as the encoders feed them on the path.
+        x = (torch.rand((n, 32), generator=gen, device=dev) * 2 - 1).bfloat16()
+        d = (torch.rand((n, 16), generator=gen, device=dev) * 2 - 1).bfloat16()
+        g = torch.randn((n, 4), generator=gen, device=dev)
+        fk = fused_mlp.fused_mlp_fwd(ws, x, d)
+        fp = fused_mlp.fused_ngp_mlp_plain(ws, x, d)
+        dk = fused_mlp.fused_density_mlp(ws[0], ws[1], x)
+        dp = fused_mlp.fused_density_mlp_plain(ws[0], ws[1], x)
+        torch.cuda.synchronize()
+        errs = {"fwd": float((fk - fp).abs().max()),
+                "den": float((dk - dp).abs().max())}
+        runs = {"fwd": (lambda: fused_mlp.fused_mlp_fwd(ws, x, d),
+                        lambda: fused_mlp.fused_ngp_mlp_plain(ws, x, d)),
+                "den": (lambda: fused_mlp.fused_density_mlp(ws[0], ws[1], x),
+                        lambda: fused_mlp.fused_density_mlp_plain(
+                            ws[0], ws[1], x))}
+        if n == N_SAMPLES:
+            (bk, dxk), (bk2, dxk2) = (fused_mlp.fused_mlp_bwd(ws, x, d, g)
+                                      for _ in range(2))
+            bp, dxp = fused_mlp.fused_ngp_mlp_bwd_plain(ws, x, d, g)
+            torch.cuda.synchronize()
+            dx_err = float((dxk - dxp).abs().max())
+            rel = [float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(bk, bp)]
+            same = torch.equal(dxk, dxk2) and all(
+                torch.equal(a, b) for a, b in zip(bk, bk2))
+            print(f"kernel B-MLP, N={n}: dx max abs err {dx_err:.3e} "
+                  f"(tolerance {MLP_ATOL:g}); weight grads max err rel to "
+                  f"max {', '.join(f'{r:.3e}' for r in rel)} (tolerance "
+                  f"{MLP_WGRAD_RTOL_OF_MAX:g}); two runs bitwise equal: "
+                  f"{same}", flush=True)
+            if not (dx_err <= MLP_ATOL
+                    and all(r <= MLP_WGRAD_RTOL_OF_MAX for r in rel) and same):
+                raise SystemExit("kernel B-MLP disagrees with its plain twin")
+            errs["bwd"] = max([dx_err] + [float((a - b).abs().max())
+                                          for a, b in zip(bk, bp)])
+            runs["bwd"] = (lambda: fused_mlp.fused_mlp_bwd(ws, x, d, g),
+                           lambda: fused_mlp.fused_ngp_mlp_bwd_plain(
+                               ws, x, d, g))
+        for kern, name in (("fwd", "F-MLP"), ("den", "D-MLP")):
+            print(f"kernel {name}, N={n}: max abs err {errs[kern]:.3e} "
+                  f"(tolerance {MLP_ATOL:g})", flush=True)
+            if not errs[kern] <= MLP_ATOL:
+                raise SystemExit(f"kernel {name} disagrees with its plain twin")
+        for kern, (k_fn, p_fn) in runs.items():
+            ms, plain_ms, four = time_pair(k_fn, p_fn)
+            print(f"time mlp {kern}, N={n}: kernel {ms:.4f} ms ({four[0]:.4f}, "
+                  f"{four[1]:.4f}), plain {plain_ms:.4f} ms ({four[2]:.4f}, "
+                  f"{four[3]:.4f})", flush=True)
+            stats[kern][n] = (ms, plain_ms)
+            stats[kern]["err"] = max(stats[kern]["err"], errs[kern])
+        del x, d, g, fk, fp, dk, dp
+    return stats
+
+
+def headline_cfg(ngp_synthetic_cfg, pallas_mlp):
     cfg = ngp_synthetic_cfg(hash_levels=4, hash_features=8)
     cfg.compacted_batch = 1 << 17
     cfg.march_budget_factor = 2
     cfg.hashmap_fast_cap = 1 << 19
+    cfg.use_pallas_mlp = pallas_mlp
+    return cfg
+
+
+def train_windows(torch, runner, steps):
+    """Train `steps` steps in 16-step windows; returns (losses, window
+    seconds, total seconds)."""
+    losses, window_s = [], []
+    t_all = time.perf_counter()
+    for w in range(steps // 16):
+        t_w = time.perf_counter()
+        loss = runner.train_range(16 * w, 16 * (w + 1))
+        losses.append(float(loss))  # waits for the window's last step
+        window_s.append(time.perf_counter() - t_w)
+        print(f"  window {w}: steps {16 * w}-{16 * w + 15}, loss "
+              f"{losses[-1]:.6f}, {window_s[-1]:.4f} s, next shape "
+              f"{runner.sampler.n_rays_per_batch} x "
+              f"{runner.sampler.n_samples_per_ray}", flush=True)
+    torch.cuda.synchronize()
+    return losses, window_s, time.perf_counter() - t_all
+
+
+def check_training(torch, runner, losses):
+    finite = all(math.isfinite(x) for x in losses) and all(
+        bool(torch.isfinite(p).all()) for p in runner.model.parameters())
+    if not finite:
+        raise SystemExit(f"non-finite loss or parameters: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"the loss did not fall over {HEADLINE_STEPS} steps: "
+                         f"{losses}")
+
+
+def run_fused_path(torch, Runner, ngp_synthetic_cfg, fused_mlp, hash_nbr,
+                   mse2psnr):
+    """Phase 5: the headline with the fused MLP kernels, then its test
+    images rendered with them and with the plain chain."""
+    headline_cfg(ngp_synthetic_cfg, True)
+    runner = Runner(device="cuda")
+    if not runner.model._fused_ok:
+        raise SystemExit("cfg.use_pallas_mlp did not open the fused gate")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp.fused_mlp_fwd.launches = 0
+    fused_mlp.fused_mlp_bwd.launches = 0
+    fused_mlp.fused_density_mlp.launches = 0
+    hash_nbr.encode_fwd.launches = 0
+    hash_nbr.grad_table.launches = 0
+    losses, window_s, total_s = train_windows(torch, runner, HEADLINE_STEPS)
+    train_launches = {"fwd": fused_mlp.fused_mlp_fwd.launches,
+                      "bwd": fused_mlp.fused_mlp_bwd.launches,
+                      "hash_fwd": hash_nbr.encode_fwd.launches,
+                      "hash_bwd": hash_nbr.grad_table.launches}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"fused headline: {HEADLINE_STEPS} steps in {total_s:.4f} s = "
+          f"{HEADLINE_STEPS / total_s:.3f} steps/s (windows 1-2: "
+          f"{32 / sum(window_s[1:]):.3f} steps/s), peak memory "
+          f"{peak / 2**20:.1f} MiB, launches F-MLP {train_launches['fwd']} "
+          f"B-MLP {train_launches['bwd']} F {train_launches['hash_fwd']} B "
+          f"{train_launches['hash_bwd']}, on {card_line()}", flush=True)
+    check_training(torch, runner, losses)
+    if train_launches["bwd"] != HEADLINE_STEPS \
+            or train_launches["fwd"] < HEADLINE_STEPS \
+            or train_launches["hash_fwd"] <= 0 \
+            or train_launches["hash_bwd"] <= 0:
+        raise SystemExit(f"the fused kernels did not run once a step: "
+                         f"{train_launches}")
+
+    from jnerf_tpu_torch.utils.registry import DATASETS, build_from_cfg
+
+    runner.dataset["test"] = build_from_cfg(runner.cfg.dataset.test, DATASETS,
+                                            device="cuda")
+    n_img = runner.dataset["test"].n_images
+    u = torch.rand((runner.render_chunk_rays,), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    renders = {}
+    for fused in (True, False):
+        runner.model._fused_ok = fused
+        fused_mlp.fused_mlp_fwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mses = runner.render_test(save_img=False, u=u)
+        torch.cuda.synchronize()
+        per_img = (time.perf_counter() - t0) / n_img
+        launches = fused_mlp.fused_mlp_fwd.launches
+        imgs = [runner.render_img("test", img_id=i, u=u)[0]
+                for i in range(n_img)]
+        renders[fused] = (imgs, launches)
+        print(f"render_test ({'F-MLP' if fused else 'plain chain'}): "
+              f"{n_img} images of {runner.W}x{runner.H}, "
+              f"{per_img * 1e3:.3f} ms per image, PSNR "
+              f"{', '.join(f'{float(mse2psnr(m)):.3f}' for m in mses)} dB, "
+              f"F-MLP launches {launches}", flush=True)
+    runner.model._fused_ok = True
+    if renders[True][1] <= 0 or renders[False][1] != 0:
+        raise SystemExit("F-MLP did not run (only) on the fused render")
+    diffs = [abs(a - b) for a, b in zip(renders[True][0], renders[False][0])]
+    max_diff = max(float(x.max()) for x in diffs)
+    mean_diff = sum(float(x.mean()) for x in diffs) / len(diffs)
+    print(f"render fused vs plain chain: max |diff| {max_diff:.3e}, mean "
+          f"|diff| {mean_diff:.3e} (bounds {RENDER_MAX_DIFF:g}, "
+          f"{RENDER_MEAN_DIFF:g})", flush=True)
+    if not (max_diff <= RENDER_MAX_DIFF and mean_diff <= RENDER_MEAN_DIFF):
+        raise SystemExit("the fused render disagrees with the plain chain's")
+    if not all(math.isfinite(float(x.sum())) for x in diffs):
+        raise SystemExit("non-finite render")
+    return dict(train_launches, fwd=train_launches["fwd"] + renders[True][1],
+                den=dmlp_launches(fused_mlp, "the fused path"))
+
+
+def dmlp_launches(fused_mlp, path):
+    """D-MLP's launch count since its reset before `path`, which must be 0:
+    neither package calls it on a path."""
+    n = fused_mlp.fused_density_mlp.launches
+    if n != 0:
+        raise SystemExit(f"D-MLP launched {n} times on {path}")
+    return n
+
+
+def run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr, fused_mlp):
+    """Phase 4: the slice, with the kernels' launch counts from its run."""
+    headline_cfg(ngp_synthetic_cfg, False)
     t0 = time.perf_counter()
     runner = Runner(device="cuda")
     torch.cuda.synchronize()
@@ -138,46 +353,31 @@ def run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr):
     torch.cuda.reset_peak_memory_stats()
     hash_nbr.encode_fwd.launches = 0
     hash_nbr.grad_table.launches = 0
-    losses, window_s = [], []
-    t_all = time.perf_counter()
-    for w in range(HEADLINE_STEPS // 16):
-        t_w = time.perf_counter()
-        loss = runner.train_range(16 * w, 16 * (w + 1))
-        losses.append(float(loss))  # waits for the window's last step
-        window_s.append(time.perf_counter() - t_w)
-        print(f"  window {w}: steps {16 * w}-{16 * w + 15}, loss "
-              f"{losses[-1]:.6f}, {window_s[-1]:.4f} s, next shape "
-              f"{runner.sampler.n_rays_per_batch} x "
-              f"{runner.sampler.n_samples_per_ray}", flush=True)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t_all
+    fused_mlp.fused_density_mlp.launches = 0
+    losses, window_s, total_s = train_windows(torch, runner, HEADLINE_STEPS)
     launches = {"fwd": hash_nbr.encode_fwd.launches,
-                "bwd": hash_nbr.grad_table.launches}
+                "bwd": hash_nbr.grad_table.launches,
+                "den": dmlp_launches(fused_mlp, "the headline")}
     peak = torch.cuda.max_memory_allocated()
-
-    finite = all(math.isfinite(x) for x in losses) and all(
-        bool(torch.isfinite(p).all()) for p in runner.model.parameters())
     print(f"headline: {HEADLINE_STEPS} steps in {total_s:.4f} s = "
           f"{HEADLINE_STEPS / total_s:.3f} steps/s (incl. 3 grid refreshes; "
           f"windows 1-2: {32 / sum(window_s[1:]):.3f} steps/s), peak memory "
           f"{peak / 2**20:.1f} MiB, launches F {launches['fwd']} B "
           f"{launches['bwd']}, on {card_line()}", flush=True)
-    if not finite:
-        raise SystemExit(f"non-finite loss or parameters: losses {losses}")
-    if not losses[-1] < losses[0]:
-        raise SystemExit(f"the loss did not fall over {HEADLINE_STEPS} steps: "
-                         f"{losses}")
+    check_training(torch, runner, losses)
     if launches["fwd"] <= 0 or launches["bwd"] <= 0:
         raise SystemExit(f"a kernel was not launched on the main path: "
                          f"{launches}")
     return launches
 
 
-def check_small_step(torch, Runner, ngp_synthetic_cfg):
-    """Phase 5: one tiny step on the card against the same step on the CPU
+def check_small_step(torch, Runner, ngp_synthetic_cfg, fused_mlp, pallas_mlp):
+    """Phase 6: one tiny step on the card against the same step on the CPU
     (same params, grid state and draws): loss rtol 1e-3, and per gradient
     tensor mean |diff| <= 1e-3 of its largest entry (bf16 rounding flips,
-    as in tests/test_torch_step.py).  The largest single difference is
+    as in tests/test_torch_step.py).  With ``pallas_mlp`` the cap is 8192
+    kept samples of 256 x 128, so that the step runs the fused kernels on
+    the card (and their twins on the CPU).  The largest single difference is
     printed, not held to a bound: rays are computed on each device, and a
     sample that lies within an ulp of a cell border may take the
     neighbouring hash entry on one of them."""
@@ -187,7 +387,12 @@ def check_small_step(torch, Runner, ngp_synthetic_cfg):
                             log2_hashmap_size=13)
     cfg.compacted_batch = 1024
     cfg.march_budget_factor = 2
+    if pallas_mlp:
+        cfg.update(use_pallas_mlp=True, compacted_batch=8192,
+                   target_batch_size=1 << 14)
     gpu = Runner(device="cuda")
+    if gpu.model._fused_ok != pallas_mlp:
+        raise SystemExit("the fused gate does not follow cfg.use_pallas_mlp")
     gpu.train_range(0, 16)
     cpu = Runner(device="cpu")
     cpu.model.load_state_dict({k: v.cpu() for k, v in
@@ -200,6 +405,7 @@ def check_small_step(torch, Runner, ngp_synthetic_cfg):
     bg = torch.rand((n_rays, 3), generator=gen)
     u = torch.rand((n_rays,), generator=gen)
     out = {}
+    fused_mlp.fused_mlp_fwd.launches = fused_mlp.fused_mlp_bwd.launches = 0
     for name, r in (("cuda", gpu), ("cpu", cpu)):
         dev = r.device
         r.model.zero_grad(set_to_none=True)
@@ -214,7 +420,11 @@ def check_small_step(torch, Runner, ngp_synthetic_cfg):
         diff = (out["cuda"][1][k] - ref).abs()
         scale = float(ref.abs().max())
         worst.append((k, float(diff.max()) / scale, float(diff.mean()) / scale))
-    print(f"small step card vs CPU: loss {l_gpu:.6f} vs {l_cpu:.6f}; grads "
+    fused = (fused_mlp.fused_mlp_fwd.launches, fused_mlp.fused_mlp_bwd.launches)
+    if fused != ((1, 1) if pallas_mlp else (0, 0)):
+        raise SystemExit(f"fused MLP launches {fused} in the small step")
+    print(f"small step card vs CPU ({'fused' if pallas_mlp else 'plain'} "
+          f"MLP, {n_rays} x {n_samples}): loss {l_gpu:.6f} vs {l_cpu:.6f}; grads "
           + ", ".join(f"{k} max {a:.2e} mean {b:.2e}" for k, a, b in worst),
           flush=True)
     if not abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu):
@@ -229,7 +439,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
                          "torch.cuda.is_available() is false")
-    from jnerf_tpu_torch.ops import cuda_lib, hash_nbr
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jnerf_tpu_torch.models.losses import mse2psnr
+    from jnerf_tpu_torch.ops import cuda_lib, fused_mlp, hash_nbr
     from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
     from jnerf_tpu_torch.runner import Runner
     from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
@@ -238,19 +451,33 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
     print(f"card: {card_line()}", flush=True)
 
+    # One nvcc per source, started together.
     t0 = time.perf_counter()
-    lib = cuda_lib.build("hash_encode")
+    names = ("hash_encode", "fused_mlp")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(cuda_lib.build, names))
     cuda_lib.hash_encode_lib()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    cuda_lib.fused_mlp_lib()
+    print(f"built {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "Compile time")):
+                print(f"  ptxas: {line.strip()}", flush=True)
 
     stats = check_kernels(torch, hash_nbr, HashGridSpec)
-    launches = run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr)
-    check_small_step(torch, Runner, ngp_synthetic_cfg)
+    mlp = check_mlp_kernels(torch, fused_mlp)
+    launches = run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr,
+                            fused_mlp)
+    fused_launches = run_fused_path(torch, Runner, ngp_synthetic_cfg,
+                                    fused_mlp, hash_nbr, mse2psnr)
+    for pallas_mlp in (False, True):
+        check_small_step(torch, Runner, ngp_synthetic_cfg, fused_mlp,
+                         pallas_mlp)
 
     head = "f8l4@2^19"
+    src = "jnerf_tpu_torch/csrc/fused_mlp.cu"
     kernels = [
         {"name": "hash_encode_fwd (kernel F)", "route": "cuda",
          "source": "jnerf_tpu_torch/csrc/hash_encode.cu",
@@ -259,7 +486,8 @@ def main() -> int:
          "ms": stats["fwd"][head][0], "plain_ms": stats["fwd"][head][1],
          "shape": f"N={N_SAMPLES} {head}",
          "f2l16@2^18": {"ms": stats["fwd"]["f2l16@2^18"][0],
-                        "plain_ms": stats["fwd"]["f2l16@2^18"][1]}},
+                        "plain_ms": stats["fwd"]["f2l16@2^18"][1]},
+         "fused_path_launches": fused_launches["hash_fwd"]},
         {"name": "hash_encode_bwd (kernel B)", "route": "cuda",
          "source": "jnerf_tpu_torch/csrc/hash_encode.cu",
          "replaces": "jnerf_tpu/ops/hash_nbr.py:381",
@@ -269,7 +497,30 @@ def main() -> int:
          "ms": stats["bwd"][head][0], "plain_ms": stats["bwd"][head][1],
          "shape": f"N={N_SAMPLES} {head}",
          "f2l16@2^18": {"ms": stats["bwd"]["f2l16@2^18"][0],
-                        "plain_ms": stats["bwd"]["f2l16@2^18"][1]}},
+                        "plain_ms": stats["bwd"]["f2l16@2^18"][1]},
+         "fused_path_launches": fused_launches["hash_bwd"]},
+        {"name": "fused_mlp_fwd (F-MLP)", "route": "cuda", "source": src,
+         "replaces": "jnerf_tpu/ops/fused_mlp.py:113",
+         "launches": fused_launches["fwd"], "max_abs_err": mlp["fwd"]["err"],
+         "ms": mlp["fwd"][N_SAMPLES][0], "plain_ms": mlp["fwd"][N_SAMPLES][1],
+         "shape": f"N={N_SAMPLES}",
+         f"N={N_RENDER}": {"ms": mlp["fwd"][N_RENDER][0],
+                           "plain_ms": mlp["fwd"][N_RENDER][1]}},
+        {"name": "fused_mlp_bwd (B-MLP)", "route": "cuda", "source": src,
+         "replaces": "jnerf_tpu/ops/fused_mlp.py:123",
+         "launches": fused_launches["bwd"], "max_abs_err": mlp["bwd"]["err"],
+         "ms": mlp["bwd"][N_SAMPLES][0], "plain_ms": mlp["bwd"][N_SAMPLES][1],
+         "shape": f"N={N_SAMPLES}"},
+        {"name": "fused_density_mlp (D-MLP)", "route": "cuda", "source": src,
+         "replaces": "jnerf_tpu/ops/fused_mlp.py:242",
+         "launches": launches["den"] + fused_launches["den"],
+         "on_path": "none: neither package calls it on a path; phase 3 "
+         "launches it against its twin",
+         "max_abs_err": mlp["den"]["err"],
+         "ms": mlp["den"][N_SAMPLES][0], "plain_ms": mlp["den"][N_SAMPLES][1],
+         "shape": f"N={N_SAMPLES}",
+         f"N={N_RENDER}": {"ms": mlp["den"][N_RENDER][0],
+                           "plain_ms": mlp["den"][N_RENDER][1]}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

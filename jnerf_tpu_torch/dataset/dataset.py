@@ -1,7 +1,7 @@
 """Camera-pose conversion and ray generation on device tensors.
 
-Counterpart of the pose helpers and ``rays_from_pixels`` of
-`jnerf_tpu/dataset/dataset.py`.  The blender/NGP-json ``NerfDataset``
+Counterpart of the pose helpers, ``rays_from_pixels`` and
+``rays_for_image`` of `jnerf_tpu/dataset/dataset.py`.  The blender/NGP-json ``NerfDataset``
 loader is not ported yet.
 """
 
@@ -56,3 +56,23 @@ def rays_from_pixels(pixel_index, transforms, focal_lengths, principal_points,
     rays_d = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
     rays_o = xf[:, :, 3]
     return img_id, rays_o, rays_d
+
+
+def rays_for_image(transform, focal_length, principal_point, W, H):
+    """Full-image rays for one [3,4] NGP-space pose, pixels in row-major
+    order (y outer, x inner) at their centres.
+
+    Returns rays_o [H*W,3], rays_d [H*W,3] (unit norm) on the pose's device.
+    """
+    dev = transform.device
+    ys = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / H
+    xs = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / W
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    xy = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+    res = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    d_cam = torch.cat([(xy - principal_point) * res / focal_length,
+                       torch.ones((H * W, 1), device=dev)], dim=-1)
+    d_world = d_cam @ transform[:, :3].T
+    rays_d = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
+    rays_o = transform[:, 3].expand(H * W, 3)
+    return rays_o, rays_d

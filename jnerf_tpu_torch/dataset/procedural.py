@@ -4,7 +4,8 @@ Counterpart of `jnerf_tpu/dataset/procedural.py`: ``SyntheticSpheresDataset``
 renders the analytic sphere scene with numpy and keeps images, poses and
 intrinsics as tensors on its device, with the same fields as the JAX
 package's dataset, so the same config and seed give the same pixels and
-cameras in both packages.
+cameras in both packages, in each of the train, val and test modes (each
+mode offsets the seed), and the same full-image rays for rendering.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from jnerf_tpu_torch.utils.registry import DATASETS
-from .dataset import matrix_nerf2ngp
+from .dataset import matrix_nerf2ngp, rays_for_image
 from .dataset_util import NERF_SCALE, fov_to_focal_length
 from .synthetic import _look_at_pose, render_analytic
 
@@ -77,3 +78,24 @@ class SyntheticSpheresDataset:
             np.stack(images).reshape(self.n_images * self.H * self.W, 4)
         ).to(device)
         self.transforms_gpu = torch.from_numpy(np.stack(transforms)).to(device)
+
+    def generate_rays_total_test(self, img_id: int):
+        """Full-image rays (rays_o, rays_d) [H*W, 3] of dataset camera
+        ``img_id``."""
+        return rays_for_image(self.transforms_gpu[img_id],
+                              self.focal_lengths[img_id],
+                              self.principal_points[img_id], self.W, self.H)
+
+    def generate_rays_with_pose(self, pose):
+        """Full-image rays for an external NeRF-space [3,4] pose."""
+        ngp = torch.from_numpy(
+            matrix_nerf2ngp(np.asarray(pose), self.scale, self.offset)
+        ).to(self.transforms_gpu.device)
+        return rays_for_image(ngp, self.focal_lengths[0],
+                              self.principal_points[0], self.W, self.H)
+
+    def image(self, img_id: int) -> np.ndarray:
+        """Image ``img_id`` as a numpy [H, W, 4] RGBA array."""
+        hw = self.H * self.W
+        rows = self.image_data[img_id * hw:(img_id + 1) * hw]
+        return rows.cpu().numpy().reshape(self.H, self.W, -1)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from jnerf_tpu_torch.ops.composite import network_to_density
+from jnerf_tpu_torch.ops.composite import network_to_density, render_rays
 from jnerf_tpu_torch.ops.occupancy import (
     GridConfig,
     density_grid_mean,
@@ -78,6 +78,7 @@ class DensityGridSampler:
             if self.const_dt else None
         )
         self.n_samples_per_ray = self._samples_for_rays(self.n_rays_per_batch)
+        self.inference_samples_per_ray = min(256, self.march_config.n_candidates)
         # Cross-window EMA of the measured demand per ray (host float).
         self._demand_ema: float | None = None
         self.state = None  # set by init_state()
@@ -109,6 +110,19 @@ class DensityGridSampler:
         optional injected start jitter."""
         return sample_rays(self.march_config, state["bitfield"], rays_o, rays_d,
                            generator, n_samples, u=u)
+
+    def composite(self, samples: RaySamples, network_outputs, background=None,
+                  inference=False):
+        """Alpha-composite [R*S, 4] or [R, S, 4] raw outputs.  Training
+        returns rgb [R, 3] with the background over the leftover
+        transmittance of every ray; inference returns (rgb, opacity [R])
+        with no background term."""
+        r, s = samples.dts.shape
+        raw = network_outputs.reshape(r, s, 4)
+        if inference:
+            return render_rays(raw, samples.dts, samples.valid)
+        rgb, _ = render_rays(raw, samples.dts, samples.valid, None, background)
+        return rgb
 
     # ----------------------------------------------------------- grid update
     def update_density_grid_fn(self, state, first_step: bool, generator=None,

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (`jnerf_tpu_torch/csrc/*.cu`).
+"""Build and load the port's CUDA kernels (`jnerf_tpu_torch/csrc/*.cu`:
+``hash_encode`` and ``fused_mlp``).
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so a build takes
@@ -78,6 +79,28 @@ def hash_encode_lib() -> ctypes.CDLL:
     lib.hash_encode_fwd.restype = ctypes.c_int
     lib.hash_encode_bwd.argtypes = _HASH_BWD_ARGS
     lib.hash_encode_bwd.restype = ctypes.c_int
+    return lib
+
+
+# fused_mlp_fwd(x, d, w0, w1, v0, v1, v2, out, n, stream)
+_MLP_FWD_ARGS = [_P] * 8 + [_I, _P]
+# fused_mlp_bwd(x, d, w0, w1, v0, v1, v2, g, dx, partial, dw, n, n_blocks,
+#               stream)
+_MLP_BWD_ARGS = [_P] * 11 + [_I, _I, _P]
+# fused_density_mlp_fwd(x, w0, w1, out, n, stream)
+_DENSITY_FWD_ARGS = [_P] * 4 + [_I, _P]
+
+
+@functools.lru_cache(maxsize=None)
+def fused_mlp_lib() -> ctypes.CDLL:
+    """The fused NGP MLP kernels, built at first use."""
+    lib = ctypes.CDLL(str(build("fused_mlp")))
+    for fn, args in ((lib.fused_mlp_fwd, _MLP_FWD_ARGS),
+                     (lib.fused_mlp_bwd, _MLP_BWD_ARGS),
+                     (lib.fused_density_mlp_fwd, _DENSITY_FWD_ARGS),
+                     (lib.fused_mlp_bwd_blocks, [_I])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -9,14 +9,25 @@ adaptation.  The JAX package chains a refresh window of steps in one
 draws come from one ``torch.Generator`` on the runner's device, and the
 step takes injected draws so that a test can feed it the JAX package's.
 
-Rendering, test/validation images and checkpoints are not ported yet.
+The rendering half is ported too: ``render_img``, ``render_img_with_pose``,
+``render_test``, ``val_img`` and ``test`` march full images in chunks of
+``render_chunk_rays`` rays at the sampler's inference budget, composite
+without a background term and add the run's background colour after.  The
+inference jitter is one [chunk] draw per image, used for every chunk (the
+JAX package's one key per image), from the runner's generator unless
+given.  Images are written only by ``save_img``, which imports PIL when it
+is called.  Checkpoints and the mp4 ``render`` task are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from jnerf_tpu_torch.dataset.dataset import rays_from_pixels
+from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
 from jnerf_tpu_torch.ops.compact import compact_indices, render_rays_compact
 from jnerf_tpu_torch.ops.composite import density_l1_reg, render_rays
 from jnerf_tpu_torch.utils.config import get_cfg
@@ -46,9 +57,14 @@ class Runner:
         seed = cfg.seed if cfg.seed is not None else 42
         self.generator = torch.Generator(device).manual_seed(seed)
 
+        self.exp_name = cfg.exp_name
         self.dataset = {"train": build_from_cfg(cfg.dataset.train, DATASETS,
                                                 device=device)}
         cfg.dataset_obj = self.dataset["train"]
+        self.dataset["val"] = (
+            build_from_cfg(cfg.dataset.val, DATASETS, device=device)
+            if cfg.dataset.val else self.dataset["train"])
+        self.dataset["test"] = None  # built by test() at first use
         self.model = build_from_cfg(cfg.model, NETWORKS, device=device,
                                     generator=self.generator)
         cfg.model_obj = self.model
@@ -64,6 +80,17 @@ class Runner:
         self.optimizer = self.expdecay.make(self.params)
         self.ema = build_from_cfg(cfg.ema, OPTIMS) if cfg.ema else None
         self.ema_state = self.ema.init(self.params) if self.ema else None
+
+        self.background_color = torch.tensor(
+            cfg.background_color or [0, 0, 0], dtype=torch.float32)
+        self.alpha_image = bool(cfg.alpha_image)
+        self.val_freq = 4096
+        # Created when an image is first written, not here.
+        self.save_path = os.path.join(cfg.log_dir or "./logs", self.exp_name)
+        self.W, self.H = (int(v) for v in self.dataset["train"].resolution)
+        self.render_chunk_rays = 4096
+        # Picks the image of render_img(img_id=None).
+        self._img_rng = np.random.default_rng(seed)
 
         self.tot_train_steps = cfg.tot_train_steps
         self.sampler.init_state()
@@ -193,14 +220,133 @@ class Runner:
 
     def train(self):
         """Train to ``tot_train_steps``, printing one plain line every
-        ``update_den_freq * 16`` steps (validation renders, checkpoints and
-        the test pass are not ported yet)."""
+        ``update_den_freq * 16`` steps, with the PSNR of a validation render
+        every ``val_freq`` steps; then render and score the test set."""
         every = self.sampler.update_den_freq * 16
         i = self.start
         while i < self.tot_train_steps:
-            seg_end = min(self.tot_train_steps, (i // every + 1) * every)
+            seg_end = min(self.tot_train_steps, (i // every + 1) * every,
+                          (i // self.val_freq + 1) * self.val_freq)
             loss = self.train_range(i, seg_end)
             i = seg_end
-            print(f"STEP={i} | LOSS={float(loss):.5f} | "
-                  f"RAYS={self.sampler.n_rays_per_batch} | "
-                  f"SAMPLES/RAY={self.sampler.n_samples_per_ray}", flush=True)
+            line = (f"STEP={i} | LOSS={float(loss):.5f} | "
+                    f"RAYS={self.sampler.n_rays_per_batch} | "
+                    f"SAMPLES/RAY={self.sampler.n_samples_per_ray}")
+            if i % self.val_freq == 0 and i < self.tot_train_steps:
+                line += f" | VAL PSNR={float(mse2psnr(self.val_img(i))):.3f}"
+            print(line, flush=True)
+        self.test()
+
+    # ------------------------------------------------------------------- test
+    def test(self):
+        """Render the test set into ``<save_path>/test`` and print and
+        return its mean PSNR (None for a dataset without images)."""
+        path = os.path.join(self.save_path, "test")
+        os.makedirs(path, exist_ok=True)
+        mse_list = self.render_test(save_path=path)
+        if self.dataset["test"].have_img:
+            tot_psnr = float(np.mean([float(mse2psnr(m)) for m in mse_list]))
+            print(f"TOTAL TEST PSNR===={tot_psnr}", flush=True)
+            return tot_psnr
+        return None
+
+    # -------------------------------------------------------------- rendering
+    @torch.no_grad()
+    def _render_rays_chunked(self, rays_o, rays_d, H, W, u=None):
+        """Render H*W rays in chunks of ``render_chunk_rays`` (the last one
+        padded with rays of ones); returns numpy rgb [H, W, 3] and opacity
+        [H, W, 1].  ``u`` [chunk] is the march jitter of every chunk."""
+        n = H * W
+        chunk = self.render_chunk_rays
+        n_samples = self.sampler.inference_samples_per_ray
+        dev = self.device
+        if u is None:
+            u = torch.rand((chunk,), generator=self.generator, device=dev)
+        rgb_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        a_out = torch.empty((n,), dtype=torch.float32, device=dev)
+        for px in range(0, n, chunk):
+            end = min(px + chunk, n)
+            ro, rd = rays_o[px:end], rays_d[px:end]
+            if end - px < chunk:
+                pad = torch.ones((chunk - (end - px), 3), dtype=ro.dtype,
+                                 device=dev)
+                ro, rd = torch.cat([ro, pad]), torch.cat([rd, pad])
+            samples = self.sampler.sample_fixed(self.sampler.state, ro, rd,
+                                                None, n_samples, u=u)
+            raw = self.model(samples.positions.reshape(-1, 3),
+                             samples.dirs.reshape(-1, 3))
+            rgb, opacity = self.sampler.composite(samples, raw, inference=True)
+            rgb_out[px:end] = rgb[:end - px]
+            a_out[px:end] = opacity[:end - px]
+        return (rgb_out.reshape(H, W, 3).cpu().numpy(),
+                a_out.reshape(H, W, 1).cpu().numpy())
+
+    def render_img(self, dataset_mode="train", img_id=None, u=None):
+        """Render camera ``img_id`` of a dataset split (a random one when
+        None); returns numpy (img [H, W, 3], alpha or None, target
+        [H, W, 3]), the background composited in unless ``alpha_image``."""
+        ds = self.dataset[dataset_mode]
+        if img_id is None:
+            img_id = int(self._img_rng.integers(0, ds.n_images))
+        rays_o, rays_d = ds.generate_rays_total_test(img_id)
+        img, alpha = self._render_rays_chunked(rays_o, rays_d, self.H, self.W,
+                                               u=u)
+        tar = ds.image(img_id)
+        bg = self.background_color.numpy()
+        img_tar = tar[..., :3] * tar[..., 3:] + bg * (1 - tar[..., 3:])
+        if not self.alpha_image:
+            return img + bg * (1 - alpha), None, img_tar
+        return img, alpha, img_tar
+
+    def render_img_with_pose(self, pose, u=None):
+        """Render a NeRF-space [3, 4] camera pose with the training
+        intrinsics; returns numpy [H, W, 3]."""
+        rays_o, rays_d = self.dataset["train"].generate_rays_with_pose(pose)
+        img, alpha = self._render_rays_chunked(rays_o, rays_d, self.H, self.W,
+                                               u=u)
+        if not self.alpha_image:
+            img = img + self.background_color.numpy() * (1 - alpha)
+        return img
+
+    def render_test(self, save_img=True, save_path=None, u=None):
+        """Render every test image (building the test split at first use);
+        returns the list of their MSEs against the targets, writing renders
+        and targets as PNGs if ``save_img``."""
+        if save_path is None:
+            save_path = self.save_path
+        if self.dataset["test"] is None:
+            self.dataset["test"] = build_from_cfg(self.cfg.dataset.test,
+                                                  DATASETS, device=self.device)
+        ds = self.dataset["test"]
+        mse_list = []
+        for i in range(ds.n_images):
+            img, alpha, img_tar = self.render_img("test", img_id=i, u=u)
+            if save_img:
+                os.makedirs(save_path, exist_ok=True)
+                self.save_img(os.path.join(
+                    save_path, f"{self.exp_name}_r_{i}.png"), img, alpha)
+                if ds.have_img:
+                    self.save_img(os.path.join(
+                        save_path, f"{self.exp_name}_gt_{i}.png"), img_tar)
+            mse_list.append(float(img2mse(torch.from_numpy(img),
+                                          torch.from_numpy(img_tar))))
+        return mse_list
+
+    def val_img(self, it):
+        """Render a random validation image, save it and its target, and
+        return its MSE."""
+        img, _alpha, img_tar = self.render_img(dataset_mode="val")
+        os.makedirs(self.save_path, exist_ok=True)
+        self.save_img(os.path.join(self.save_path, f"img{it}.png"), img)
+        self.save_img(os.path.join(self.save_path, f"target{it}.png"), img_tar)
+        return img2mse(torch.from_numpy(img), torch.from_numpy(img_tar))
+
+    @staticmethod
+    def save_img(path, img, alpha=None):
+        """Write an [H, W, 3] image (with alpha, RGBA) in [0, 1] as PNG."""
+        from PIL import Image
+
+        if alpha is not None:
+            img = np.concatenate([img, alpha], axis=-1)
+        arr = (np.asarray(img) * 255 + 0.5).clip(0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(path)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from jnerf_tpu_torch.ops import hash_nbr
+from jnerf_tpu_torch.ops import fused_mlp, hash_nbr
 from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +110,77 @@ def test_wrappers_refuse_bad_inputs(dev):
     f6 = HashGridSpec(n_levels=2, n_features_per_level=6, log2_hashmap_size=10)
     with pytest.raises(ValueError, match="F in"):
         hash_nbr.encode_fwd(f6, torch.zeros((f6.n_entries, 6), device=dev), pos)
+
+
+def _mlp_inputs(dev, n, seed=0):
+    """Kaiming-uniform weights, features ~U(-1, 1), g ~N(0, 1)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    ws = [(torch.rand(s, generator=gen, device=dev) * 2 - 1)
+          * np.sqrt(6.0 / s[0]) for s in fused_mlp.WEIGHT_SHAPES]
+    x = torch.rand((n, 32), generator=gen, device=dev) * 2 - 1
+    d = torch.rand((n, 16), generator=gen, device=dev) * 2 - 1
+    g = torch.randn((n, 4), generator=gen, device=dev)
+    return ws, x, d, g
+
+
+# Row counts: one block of the JAX package, a ragged count, and one that
+# leaves the last 128-row tile of the backward partly empty.
+@pytest.mark.parametrize("n", [8192, 5000, 70000])
+def test_fused_mlp_kernels_match_plain(dev, n):
+    """F-MLP, B-MLP and D-MLP against their twins: the same bf16 rounding
+    points and f32 sums in another order, so atol 1e-5 on the outputs and
+    dx and 1e-5 of each weight gradient's largest entry (a dropped bf16
+    rounding was off by 1.3e-2 or more).  B-MLP sums in a fixed order: two
+    runs are equal bit for bit.  bf16 feature rows, as the network feeds
+    them, give what their f32 originals give."""
+    ws, x, d, g = _mlp_inputs(dev, n)
+    out = fused_mlp.fused_mlp_fwd(ws, x, d)
+    ref = fused_mlp.fused_ngp_mlp_plain(ws, x, d)
+    dws, dx = fused_mlp.fused_mlp_bwd(ws, x, d, g)
+    dws2, dx2 = fused_mlp.fused_mlp_bwd(ws, x, d, g)
+    rdws, rdx = fused_mlp.fused_ngp_mlp_bwd_plain(ws, x, d, g)
+    den = fused_mlp.fused_density_mlp(ws[0], ws[1], x)
+    rden = fused_mlp.fused_density_mlp_plain(ws[0], ws[1], x)
+    out_bf = fused_mlp.fused_mlp_fwd(ws, x.bfloat16(), d.bfloat16())
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert float((dx - rdx).abs().max()) <= 1e-5
+    for got, want in zip(dws, rdws):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert den.shape == (n, 1)
+    assert float((den - rden).abs().max()) <= 1e-5
+    assert torch.equal(out_bf, out)
+
+
+def test_fused_autograd_goes_through_both_kernels(dev):
+    """FusedNGPMLP launches F-MLP forward and B-MLP backward; dir_feat
+    gets no gradient; the gradients equal B-MLP's on the same g."""
+    ws, x, d, g = _mlp_inputs(dev, 8192, seed=1)
+    f0, b0 = fused_mlp.fused_mlp_fwd.launches, fused_mlp.fused_mlp_bwd.launches
+    wr = [w.clone().requires_grad_(True) for w in ws]
+    xr, dr = x.clone().requires_grad_(True), d.clone().requires_grad_(True)
+    (fused_mlp.fused_ngp_mlp(wr, xr, dr) * g).sum().backward()
+    assert fused_mlp.fused_mlp_fwd.launches == f0 + 1
+    assert fused_mlp.fused_mlp_bwd.launches == b0 + 1
+    assert dr.grad is None
+    dws, dx = fused_mlp.fused_mlp_bwd(ws, x, d, g)
+    assert torch.equal(xr.grad, dx)
+    assert all(torch.equal(w.grad, dw) for w, dw in zip(wr, dws))
+
+
+def test_fused_wrappers_refuse_bad_inputs(dev):
+    """A CUDA tensor the kernels cannot take raises."""
+    ws, x, d, g = _mlp_inputs(dev, 256)
+    with pytest.raises(ValueError):
+        fused_mlp.fused_mlp_fwd(ws, x.double(), d)
+    with pytest.raises(ValueError):
+        fused_mlp.fused_mlp_fwd(ws, x[:, :16], d)
+    with pytest.raises(ValueError):
+        fused_mlp.fused_mlp_bwd(ws, x, d, g[:, :3])
+    with pytest.raises(ValueError):
+        fused_mlp.fused_density_mlp(ws[0], ws[1], x.cpu().to(dev)[:-1].T)
+    with pytest.raises(ValueError):
+        fused_mlp.fused_mlp_fwd(ws[:4] + [ws[0]], x, d)

@@ -133,7 +133,10 @@ def test_convert_round_trip(both_cfgs):
 
 def test_network_init_and_pallas_mlp_option(both_cfgs):
     """A generator draws every parameter (table within +-1e-4, He-uniform
-    weights); cfg.use_pallas_mlp raises instead of running the plain chain."""
+    weights); cfg.use_pallas_mlp opens the fused-MLP gate exactly where
+    the JAX package's does (use_fully, bf16, the fused geometry), and
+    nowhere without it."""
+    from jnerf_tpu.models.networks.ngp_network import NGPNetworks as JaxNGP
     from jnerf_tpu_torch.models.networks import NGPNetworks
 
     net = NGPNetworks(generator=torch.Generator().manual_seed(3))
@@ -142,9 +145,20 @@ def test_network_init_and_pallas_mlp_option(both_cfgs):
     w0 = net.density_mlp.weights[0]
     assert w0.shape == (32, 64)
     assert float(w0.detach().abs().max()) <= np.sqrt(6.0 / 32)
-    both_cfgs[1].use_pallas_mlp = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NGPNetworks()
+    assert not net._fused_ok and not JaxNGP()._fused_ok
+    for cfg in both_cfgs:
+        cfg.use_pallas_mlp = True
+    cases = [dict(fp16=True, kw={}), dict(fp16=False, kw={}),
+             dict(fp16=True, kw=dict(use_fully=False)),
+             dict(fp16=True, kw=dict(rgb_n_neurons=32))]
+    gates = []
+    for case in cases:
+        for cfg in both_cfgs:
+            cfg.fp16 = case["fp16"]
+        gates.append((NGPNetworks(**case["kw"])._fused_ok,
+                      JaxNGP(**case["kw"])._fused_ok))
+    assert gates == [(True, True), (False, False), (False, False),
+                     (False, False)]
 
 
 def test_losses_match_jax():

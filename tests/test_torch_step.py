@@ -29,9 +29,12 @@ def _grad_capture():
     )
 
 
-def test_one_step_loss_and_grads_match_jax(both_cfgs):
+@pytest.mark.parametrize("pallas_mlp", [False, True])
+def test_one_step_loss_and_grads_match_jax(both_cfgs, pallas_mlp):
     """One f8l4 training step with compaction (256 rays, 32 samples/ray, a
-    1024-sample cap) on the same params, the same grid state (the JAX
+    1024-sample cap; with the fused MLP on, 128 samples/ray and an
+    8192-sample cap, so that both packages take the fused MLP on the M
+    kept rows) on the same params, the same grid state (the JAX
     step-0 refresh, converted) and the same draws (pixels, march jitter,
     background from the JAX step's key).  Compared: the loss and the
     gradients, not the updated params (Adam moves every param with a
@@ -48,6 +51,12 @@ def test_one_step_loss_and_grads_match_jax(both_cfgs):
         jax_params_to_state_dict, state_dict_to_jax_params,
     )
 
+    shape = (256, 32)
+    if pallas_mlp:
+        shape = (256, 128)
+        for cfg in both_cfgs:
+            cfg.update(use_pallas_mlp=True, compacted_batch=8192,
+                       target_batch_size=1 << 14)
     jr = JaxRunner()
     jr._update_grid(0, jax.random.PRNGKey(1))
     jr.tx, jr.ema = _grad_capture(), None
@@ -58,7 +67,8 @@ def test_one_step_loss_and_grads_match_jax(both_cfgs):
 
     n_rays, n_samples = jr.sampler.n_rays_per_batch, jr.sampler.n_samples_per_ray
     assert (n_rays, n_samples) == (tr.sampler.n_rays_per_batch,
-                                   tr.sampler.n_samples_per_ray) == (256, 32)
+                                   tr.sampler.n_samples_per_ray) == shape
+    assert jr.model._fused_ok == tr.model._fused_ok == pallas_mlp
     assert n_rays * n_samples > tr.sampler.compacted_batch  # compaction on
     step = jax.jit(jr._step_fn_body(n_rays, n_samples))
     key = jax.random.PRNGKey(7)
@@ -102,14 +112,27 @@ def test_train_range_runs_and_adapts(both_cfgs):
     assert tr._pending_adapt is not None
 
 
-def test_train_prints_plain_lines(both_cfgs, capsys):
-    """Runner.train runs to tot_train_steps and reports in plain lines."""
+def test_train_prints_plain_lines(both_cfgs, capsys, tmp_path):
+    """Runner.train runs to tot_train_steps and reports in plain lines,
+    with the JAX cadence: a validation render (PSNR on the line, image and
+    target written) every val_freq steps, and the test set rendered,
+    written and scored at the end."""
     from jnerf_tpu_torch.runner import Runner
 
     both_cfgs[1].tot_train_steps = 20
-    Runner(device="cpu").train()
+    r = Runner(device="cpu")
+    r.val_freq, r.render_chunk_rays = 16, 256
+    r.train()
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and lines[0].startswith("STEP=20 | LOSS=")
+    assert len(lines) == 3, lines
+    assert lines[0].startswith("STEP=16 | LOSS=") and "VAL PSNR=" in lines[0]
+    assert lines[1].startswith("STEP=20 | LOSS=") and "VAL" not in lines[1]
+    assert lines[2].startswith("TOTAL TEST PSNR====")
+    assert np.isfinite(float(lines[2].split("=")[-1]))
+    out = tmp_path / "logs" / "bench"
+    assert {p.name for p in out.iterdir()} == {"img16.png", "target16.png",
+                                               "test"}
+    assert len(list((out / "test").iterdir())) == 4
 
 
 def test_runner_refuses_missing_cuda(both_cfgs):
@@ -124,8 +147,9 @@ def test_runner_refuses_missing_cuda(both_cfgs):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and training two steps pulls in none of JAX, the
-    JAX package, optax, yaml, PIL, cv2 or imageio (checked in a fresh
+    """Importing the port, training two steps (fused MLP option on) and
+    rendering a pose of the demo path pull in none of JAX, the JAX
+    package, optax, yaml, PIL, cv2 or imageio (checked in a fresh
     interpreter, beyond what torch itself imports)."""
     code = """
 import sys
@@ -137,7 +161,13 @@ from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
 cfg = ngp_synthetic_cfg(n_images=2, H=16, W=16, n_rays_per_batch=128,
                         target_batch_size=1 << 10, grid_size=16, nerf_steps=64,
                         hash_levels=2, hash_features=2, log2_hashmap_size=10)
-Runner(device="cpu").train_range(0, 2)
+from jnerf_tpu_torch.dataset import camera_path
+import jnerf_tpu_torch.ops.fused_mlp
+cfg.use_pallas_mlp = True
+r = Runner(device="cpu")
+r.train_range(0, 2)
+r.render_chunk_rays = 128
+assert r.render_img_with_pose(camera_path.path_spherical(2)[0]).shape == (16, 16, 3)
 new = {m.split(".")[0] for m in set(sys.modules) - before}
 print(sorted(new & {"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
                     "cv2", "imageio", "tqdm"}))
