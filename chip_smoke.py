@@ -11,12 +11,16 @@ on failure:
    fused_mlp.cu, in parallel), with ptxas' register and spill lines;
 3. each kernel against its plain PyTorch twin on the card at the main
    path's shapes, with errors and times: the hash kernels F and B at 2^17
-   samples (f8l4 at a 2^19 level cap and f2l16 at 2^18); the fused MLP
-   kernels F-MLP and D-MLP at 2^17 rows (the training M) and 2^20 rows
+   uniform samples (f8l4 at a 2^19 level cap and f2l16 at 2^18); the fused
+   MLP kernels F-MLP and D-MLP at 2^17 rows (the training M) and 2^20 rows
    (one render chunk), B-MLP at 2^17;
 4. the slice: 48 training steps of the f8l4+m17f2k19 bench headline
    (Runner(device='cuda').train_range), with launch counts that show the
    main path went through both hash kernels, steps/s and peak memory;
+   then one more step whose kept samples (positions and the f32 upstream
+   gradient of the encoder) are captured, and kernels F and B checked and
+   timed on them at both specs, kernel B also beside the scatter alone
+   (index_put_ with accumulate=True);
 5. the fused path: the same headline with cfg.use_pallas_mlp, 48 steps
    (B-MLP launched once a step), then its test split rendered
    (render_test), F-MLP launched there too, each image's PSNR, and the
@@ -25,8 +29,10 @@ on failure:
    (the plain twins, which the CPU tests hold against the JAX package),
    with the plain MLP chain and with the fused kernels.
 
-The last lines are the kernel table as JSON, the card line, and
-{"ok": true, "device": {...}}.
+The last lines are the kernel table as JSON (each kernel with its bound:
+the larger of its bytes over the memory rate and its operations over the
+peak rate of their type, counted by the *_work functions below), the card
+line, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -45,10 +51,15 @@ BWD_RTOL_OF_MAX = 1e-5
 # The fused MLP kernels and their twins round the same bf16 operands at the
 # same points and differ only in f32 summation order: on an H100 the
 # outputs and dx agreed within 4.8e-7 and the weight gradients (2^17-row
-# sums, per-block partials against one matmul) within 6.1e-7 of their
-# largest entry.  Bounds a few times that: a kernel that drops one bf16
-# rounding (of r1b in F-MLP, or of dr2, d_dout or dh in B-MLP) was off by
-# 1.3e-2 or more on the outputs or dx, and fails them.
+# sums, per-block partials against one matmul) within 6.9e-7 of their
+# largest entry.  B-MLP sums on the tensor cores, whose last bits differ
+# from the twin's k-by-k FMAs; it sums again, in the twin's order, the few
+# sums that lie at a bf16 rounding midpoint or at zero, so it rounds and
+# masks as the twin does (without that, dx was off by up to 0.11 on ~40
+# of 2^17 rows: flipped ReLU masks).  Bounds a few times the sound error:
+# a kernel that drops or changes one bf16 rounding (r1b in F-MLP; dr2,
+# d_dout or dh in B-MLP) was off by 1.3e-2 or more on the outputs or dx,
+# and fails them, as does B-MLP without its re-sum.
 MLP_ATOL = 1e-5
 MLP_WGRAD_RTOL_OF_MAX = 1e-5
 # Fused vs plain chain render of the same field: the two forwards are the
@@ -60,6 +71,64 @@ MLP_WGRAD_RTOL_OF_MAX = 1e-5
 RENDER_MAX_DIFF = 1e-2
 RENDER_MEAN_DIFF = 1e-4
 
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12  # tensor cores
+F32_FLOP_PER_S = 67e12    # outside the tensor cores
+MLP_WEIGHT_BYTES = 9408 * 4  # the five f32 weights (or their gradients)
+
+
+def work(nbytes: int, flops: int, flop_rate: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _hash_flops(n: int, n_levels: int, n_features: int) -> int:
+    # A (sample, level): 8 f32 ops an axis for the cell and its corner
+    # factors; a corner: 2 multiplies for its weight, then a multiply and
+    # an add a feature.
+    return n * n_levels * (24 + 8 * (2 + 2 * n_features))
+
+
+def hash_fwd_work(n, n_levels, n_features, rows_read) -> dict:
+    """Kernel F: pos [n, 3] and the table rows it reads (rows_read of 4F
+    bytes, each read once) in, [n, F*L] f32 out."""
+    nbytes = 12 * n + 4 * n_features * rows_read + 4 * n_features * n_levels * n
+    return work(nbytes, _hash_flops(n, n_levels, n_features), F32_FLOP_PER_S)
+
+
+def hash_bwd_work(n, n_levels, n_features, n_entries) -> dict:
+    """Kernel B: pos [n, 3] and g [n, F*L] f32 in, the whole gradient
+    [n_entries, F] f32 out."""
+    nbytes = (12 * n + 4 * n_features * n_levels * n
+              + 4 * n_features * n_entries)
+    return work(nbytes, _hash_flops(n, n_levels, n_features), F32_FLOP_PER_S)
+
+
+def mlp_fwd_work(n) -> dict:
+    """F-MLP: x [n, 32] and d [n, 16] bf16 and the weights in, [n, 4] f32
+    out (112 B a row); 9408 multiply-adds a row, bf16 operands."""
+    return work(112 * n + MLP_WEIGHT_BYTES, 2 * 9408 * n, BF16_FLOP_PER_S)
+
+
+def mlp_bwd_work(n) -> dict:
+    """B-MLP: x, d, g [n, 4] f32 and the weights in, dx [n, 32] f32 and
+    the weight gradients out (240 B a row); a row's multiply-adds: 9408
+    for the recomputed forward, 8384 for the cotangents, 9408 for the
+    weight gradients."""
+    return work(240 * n + 2 * MLP_WEIGHT_BYTES, 2 * 27200 * n,
+                BF16_FLOP_PER_S)
+
+
+def density_work(n) -> dict:
+    """D-MLP: x [n, 32] bf16, W0 and W1[:, 0] in, [n] f32 out; 2048 + 64
+    multiply-adds a row."""
+    return work(68 * n + 4 * (2048 + 64), 2 * 2112 * n, BF16_FLOP_PER_S)
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -69,13 +138,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of fn() over `iters` launches, by CUDA events."""
+def cuda_ms(fn, iters=50, warmup_s=0.05) -> float:
+    """Mean device time of fn() over `iters` launches, by CUDA events,
+    after `warmup_s` seconds (at least 3 calls) of warm-up, so that a
+    short kernel is not timed while the card's clocks are still rising."""
     import torch
 
-    for _ in range(warmup):
+    t0, calls = time.perf_counter(), 0
+    while calls < 3 or time.perf_counter() - t0 < warmup_s:
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        calls += 1
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -92,8 +165,7 @@ def time_pair(k_fn, p_fn):
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
-def check_kernels(torch, hash_nbr, HashGridSpec):
-    """Phase 3: both kernels against their twins at the main path's shapes."""
+def hash_specs(HashGridSpec):
     specs = {
         "f8l4@2^19": HashGridSpec(n_levels=4, n_features_per_level=8,
                                   log2_hashmap_size=19, max_level_size=1 << 19),
@@ -103,67 +175,121 @@ def check_kernels(torch, hash_nbr, HashGridSpec):
     assert specs["f8l4@2^19"].level_sizes == (4096, 524288, 524288, 524288)
     assert specs["f8l4@2^19"].n_entries == 1_576_960
     assert specs["f2l16@2^18"].n_entries == 3_214_536
+    return specs
+
+
+def corner_entries(torch, hash_nbr, spec, pos):
+    """The (sample, level, corner) entries [L * 8 * N] and the weights
+    [L * 8 * N], from the twins' own index and weight arithmetic."""
+    consts = hash_nbr.level_consts(spec)
+    idx, wts = [], []
+    for lvl in range(spec.n_levels):
+        e0, X = hash_nbr._cell(consts, lvl, pos)
+        for c in range(8):
+            idx.append(hash_nbr._corner_entry(consts, lvl, e0, c))
+            wts.append(hash_nbr._corner_weight(X, c))
+    return torch.cat(idx), torch.cat(wts)
+
+
+def check_hash(torch, hash_nbr, name, spec, pos, g):
+    """Kernels F and B against their twins on one spec and one set of
+    samples (positions pos [N, 3], f32 upstream gradient g [N, F*L]):
+    e0 mismatches and errors, then times of both kernels and twins, and of
+    the scatter alone (index_put_ with accumulate=True of the weighted
+    contributions, computed outside the timed region)."""
+    dev = pos.device
+    L, F = spec.n_levels, spec.n_features_per_level
+    n = pos.shape[0]
+    gen = torch.Generator(dev).manual_seed(1)
+    table = torch.randn((spec.n_entries, F), generator=gen, device=dev) * 0.1
+    e0k = torch.zeros((n, L), dtype=torch.int32, device=dev)
+    e0p = torch.zeros_like(e0k)
+    fk = hash_nbr.encode_fwd(spec, table, pos, e0_out=e0k)
+    fp = hash_nbr.hash_encode_plain(spec, table, pos, e0_out=e0p)
+    bk = hash_nbr.grad_table(spec, pos, g)
+    bp = hash_nbr.grad_table_plain(spec, pos, g)
+    idx, wts = corner_entries(torch, hash_nbr, spec, pos)
+    vals = (wts[:, None] * g.reshape(n, F, L).permute(2, 0, 1)
+            .repeat_interleave(8, dim=0).reshape(-1, F))
+    torch.cuda.synchronize()
+    e0_bad = int((e0k != e0p).sum())
+    f_err = float((fk - fp).abs().max())
+    b_err = float((bk - bp).abs().max())
+    b_max = float(bp.abs().max())
+    print(f"kernel F [{name}]: e0 mismatches {e0_bad} of {n * L}, max abs err "
+          f"{f_err:.3e} (tolerance abs {FWD_ATOL:g}, e0 0)", flush=True)
+    print(f"kernel B [{name}]: max abs err {b_err:.3e}, rel to max "
+          f"{b_err / b_max:.3e} (tolerance {BWD_RTOL_OF_MAX:g} of max |ref| = "
+          f"{b_max:.4g})", flush=True)
+    if e0_bad or not f_err <= FWD_ATOL:
+        raise SystemExit(f"kernel F disagrees with its plain twin at {name}")
+    if not b_err <= BWD_RTOL_OF_MAX * b_max:
+        raise SystemExit(f"kernel B disagrees with its plain twin at {name}")
+
+    def scatter():
+        out = torch.zeros((spec.n_entries, F), dtype=torch.float32, device=dev)
+        return out.index_put_((idx,), vals, accumulate=True)
+
+    lib_err = float((scatter() - bp).abs().max())
+    out = {"fwd": {"err": f_err}, "bwd": {"err": b_err}}
+    runs = {"fwd": (lambda: hash_nbr.encode_fwd(spec, table, pos),
+                    lambda: hash_nbr.hash_encode_plain(spec, table, pos)),
+            "bwd": (lambda: hash_nbr.grad_table(spec, pos, g),
+                    lambda: hash_nbr.grad_table_plain(spec, pos, g))}
+    for kern, (k_fn, p_fn) in runs.items():
+        ms, plain_ms, (k1, k2, p1, p2) = time_pair(k_fn, p_fn)
+        print(f"time {kern} [{name}], N={n}: kernel {ms:.4f} ms ({k1:.4f}, "
+              f"{k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})",
+              flush=True)
+        out[kern].update(ms=ms, plain_ms=plain_ms)
+    rows = int(torch.unique(idx).numel())
+    out["fwd"].update(hash_fwd_work(n, L, F, rows), library_ms=None)
+    out["bwd"].update(hash_bwd_work(n, L, F, spec.n_entries))
+    lib_ms = (cuda_ms(scatter) + cuda_ms(scatter)) / 2
+    out["bwd"].update(library_ms=lib_ms)
+    print(f"time bwd [{name}]: the scatter alone "
+          f"(index_put_ accumulate) {lib_ms:.4f} ms, max abs err "
+          f"{lib_err:.3e}; bound {out['bwd']['bound_ms']:.4f} ms "
+          f"({out['bwd']['bytes']} B); kernel F bound "
+          f"{out['fwd']['bound_ms']:.4f} ms ({rows} table rows read)",
+          flush=True)
+    del idx, wts, vals
+    return out
+
+
+def uniform_samples(torch, spec, seed=0):
     dev = torch.device("cuda")
-    stats = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}}
-    for name, spec in specs.items():
-        L, F = spec.n_levels, spec.n_features_per_level
-        gen = torch.Generator(dev).manual_seed(0)
-        pos = torch.rand((N_SAMPLES, 3), generator=gen, device=dev)
-        table = torch.randn((spec.n_entries, F), generator=gen, device=dev) * 0.1
-        g = torch.randn((N_SAMPLES, F * L), generator=gen, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    pos = torch.rand((N_SAMPLES, 3), generator=gen, device=dev)
+    g = torch.randn((N_SAMPLES, spec.n_features_per_level * spec.n_levels),
+                    generator=gen, device=dev)
+    return pos, g
 
-        e0k = torch.zeros((N_SAMPLES, L), dtype=torch.int32, device=dev)
-        e0p = torch.zeros_like(e0k)
-        fk = hash_nbr.encode_fwd(spec, table, pos, e0_out=e0k)
-        fp = hash_nbr.hash_encode_plain(spec, table, pos, e0_out=e0p)
-        bk = hash_nbr.grad_table(spec, pos, g)
-        bp = hash_nbr.grad_table_plain(spec, pos, g)
-        torch.cuda.synchronize()
-        e0_bad = int((e0k != e0p).sum())
-        f_err = float((fk - fp).abs().max())
-        f_rel = f_err / float(fp.abs().max())
-        b_err = float((bk - bp).abs().max())
-        b_max = float(bp.abs().max())
-        print(f"kernel F [{name}]: e0 mismatches {e0_bad} of {N_SAMPLES * L}, "
-              f"max abs err {f_err:.3e}, rel to max {f_rel:.3e} "
-              f"(tolerance abs {FWD_ATOL:g}, e0 0)", flush=True)
-        print(f"kernel B [{name}]: max abs err {b_err:.3e}, rel to max "
-              f"{b_err / b_max:.3e} (tolerance {BWD_RTOL_OF_MAX:g} of "
-              f"max |ref| = {b_max:.4g})", flush=True)
-        if e0_bad or not f_err <= FWD_ATOL:
-            raise SystemExit(f"kernel F disagrees with its plain twin at {name}")
-        if not b_err <= BWD_RTOL_OF_MAX * b_max:
-            raise SystemExit(f"kernel B disagrees with its plain twin at {name}")
-        stats["fwd"]["err"] = max(stats["fwd"]["err"], f_err)
-        stats["bwd"]["err"] = max(stats["bwd"]["err"], b_err)
 
-        runs = {"fwd": (lambda: hash_nbr.encode_fwd(spec, table, pos),
-                        lambda: hash_nbr.hash_encode_plain(spec, table, pos)),
-                "bwd": (lambda: hash_nbr.grad_table(spec, pos, g),
-                        lambda: hash_nbr.grad_table_plain(spec, pos, g))}
-        for kern, (k_fn, p_fn) in runs.items():
-            ms, plain_ms, (k1, k2, p1, p2) = time_pair(k_fn, p_fn)
-            print(f"time {kern} [{name}], N={N_SAMPLES}: kernel {ms:.4f} ms "
-                  f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
-                  f"({p1:.4f}, {p2:.4f})", flush=True)
-            stats[kern][name] = (ms, plain_ms)
-    return stats
+def mlp_weights(torch, gen):
+    """Kaiming-uniform weights, as the port's init draws them."""
+    from jnerf_tpu_torch.ops.fused_mlp import WEIGHT_SHAPES
+
+    return [(torch.rand(shp, generator=gen, device="cuda") * 2 - 1)
+            * math.sqrt(6.0 / shp[0]) for shp in WEIGHT_SHAPES]
+
+
+def mlp_rows(torch, gen, n):
+    """bf16 feature rows ~U(-1, 1), as the encoders feed them on the
+    path, and an upstream gradient ~N(0, 1)."""
+    x = (torch.rand((n, 32), generator=gen, device="cuda") * 2 - 1).bfloat16()
+    d = (torch.rand((n, 16), generator=gen, device="cuda") * 2 - 1).bfloat16()
+    return x, d, torch.randn((n, 4), generator=gen, device="cuda")
 
 
 def check_mlp_kernels(torch, fused_mlp):
     """Phase 3, fused MLP: F-MLP and D-MLP at the training M and at one
     render chunk, B-MLP at the training M, against their twins."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(0)
-    # Kaiming-uniform weights, as the port's init draws them.
-    ws = [(torch.rand(shp, generator=gen, device=dev) * 2 - 1)
-          * math.sqrt(6.0 / shp[0]) for shp in fused_mlp.WEIGHT_SHAPES]
+    gen = torch.Generator("cuda").manual_seed(0)
+    ws = mlp_weights(torch, gen)
     stats = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}, "den": {"err": 0.0}}
     for n in (N_SAMPLES, N_RENDER):
-        # bf16 feature rows, as the encoders feed them on the path.
-        x = (torch.rand((n, 32), generator=gen, device=dev) * 2 - 1).bfloat16()
-        d = (torch.rand((n, 16), generator=gen, device=dev) * 2 - 1).bfloat16()
-        g = torch.randn((n, 4), generator=gen, device=dev)
+        x, d, g = mlp_rows(torch, gen, n)
         fk = fused_mlp.fused_mlp_fwd(ws, x, d)
         fp = fused_mlp.fused_ngp_mlp_plain(ws, x, d)
         dk = fused_mlp.fused_density_mlp(ws[0], ws[1], x)
@@ -192,7 +318,8 @@ def check_mlp_kernels(torch, fused_mlp):
                   f"{MLP_WGRAD_RTOL_OF_MAX:g}); two runs bitwise equal: "
                   f"{same}", flush=True)
             if not (dx_err <= MLP_ATOL
-                    and all(r <= MLP_WGRAD_RTOL_OF_MAX for r in rel) and same):
+                    and all(r <= MLP_WGRAD_RTOL_OF_MAX for r in rel)
+                    and same):
                 raise SystemExit("kernel B-MLP disagrees with its plain twin")
             errs["bwd"] = max([dx_err] + [float((a - b).abs().max())
                                           for a, b in zip(bk, bp)])
@@ -209,7 +336,9 @@ def check_mlp_kernels(torch, fused_mlp):
             print(f"time mlp {kern}, N={n}: kernel {ms:.4f} ms ({four[0]:.4f}, "
                   f"{four[1]:.4f}), plain {plain_ms:.4f} ms ({four[2]:.4f}, "
                   f"{four[3]:.4f})", flush=True)
-            stats[kern][n] = (ms, plain_ms)
+            stats[kern][n] = dict(
+                {"fwd": mlp_fwd_work, "bwd": mlp_bwd_work,
+                 "den": density_work}[kern](n), ms=ms, plain_ms=plain_ms)
             stats[kern]["err"] = max(stats[kern]["err"], errs[kern])
         del x, d, g, fk, fp, dk, dp
     return stats
@@ -368,7 +497,36 @@ def run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr, fused_mlp):
     if launches["fwd"] <= 0 or launches["bwd"] <= 0:
         raise SystemExit(f"a kernel was not launched on the main path: "
                          f"{launches}")
-    return launches
+    pos, g = capture_step(runner, hash_nbr, HEADLINE_STEPS)
+    empty = g.abs().sum(dim=1) == 0
+    print(f"captured step {HEADLINE_STEPS}: {pos.shape[0]} sample slots, "
+          f"{int(empty.sum())} with a zero gradient row (empty slots), "
+          f"{torch.unique(pos, dim=0).shape[0]} distinct positions",
+          flush=True)
+    return launches, (pos, g)
+
+
+def capture_step(runner, hash_nbr, step):
+    """Train step `step` with the encoder's backward wrapped, and return
+    the positions [M, 3] and the f32 upstream gradient [M, F*L] that
+    reached kernel B in it."""
+    got = []
+    orig = hash_nbr.HashEncode.__dict__["backward"]
+
+    def backward(ctx, g):
+        if not got:
+            got.append((ctx.saved_tensors[0].clone(),
+                        g.float().contiguous().clone()))
+        return orig.__func__(ctx, g)
+
+    hash_nbr.HashEncode.backward = staticmethod(backward)
+    try:
+        runner.train_range(step, step + 1)
+    finally:
+        hash_nbr.HashEncode.backward = orig
+    if not got:
+        raise SystemExit("the step did not reach the hash backward")
+    return got[0]
 
 
 def check_small_step(torch, Runner, ngp_synthetic_cfg, fused_mlp, pallas_mlp):
@@ -433,25 +591,10 @@ def check_small_step(torch, Runner, ngp_synthetic_cfg, fused_mlp, pallas_mlp):
         raise SystemExit("the card's step gradients disagree with the CPU's")
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
-                         "torch.cuda.is_available() is false")
+def build_kernels(torch, cuda_lib):
+    """Phase 2: one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from jnerf_tpu_torch.models.losses import mse2psnr
-    from jnerf_tpu_torch.ops import cuda_lib, fused_mlp, hash_nbr
-    from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
-    from jnerf_tpu_torch.runner import Runner
-    from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
-
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-    print(f"card: {card_line()}", flush=True)
-
-    # One nvcc per source, started together.
     t0 = time.perf_counter()
     names = ("hash_encode", "fused_mlp")
     with ThreadPoolExecutor(len(names)) as pool:
@@ -466,62 +609,114 @@ def main() -> int:
                                        "Compile time")):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
-    stats = check_kernels(torch, hash_nbr, HashGridSpec)
+
+def require_cuda():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
+                         "torch.cuda.is_available() is false")
+    return torch
+
+
+def kernel_row(name, source, replaces, launches, stats, shape, **extra):
+    """One entry of the kernels line: stats holds the timed shape's
+    ms, plain_ms, library_ms and work (bound_ms, bound_by, bytes, flops)."""
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches}
+    row.update({k: stats[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "bytes",
+                                      "flops")})
+    row["shape"] = shape
+    row.update(extra)
+    return row
+
+
+def main() -> int:
+    torch = require_cuda()
+    from jnerf_tpu_torch.models.losses import mse2psnr
+    from jnerf_tpu_torch.ops import cuda_lib, fused_mlp, hash_nbr
+    from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
+    from jnerf_tpu_torch.runner import Runner
+    from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
+
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    print(f"card: {card_line()}", flush=True)
+    build_kernels(torch, cuda_lib)
+
+    specs = hash_specs(HashGridSpec)
+    hs = {}
+    for name, spec in specs.items():
+        hs["uniform " + name] = check_hash(torch, hash_nbr, "uniform " + name,
+                                           spec, *uniform_samples(torch, spec))
     mlp = check_mlp_kernels(torch, fused_mlp)
-    launches = run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr,
-                            fused_mlp)
+    launches, (step_pos, step_g) = run_headline(
+        torch, Runner, ngp_synthetic_cfg, hash_nbr, fused_mlp)
+    # The step's own clustered samples at both specs (F*L = 32 for both;
+    # at f2l16 the gradient is the f8l4 step's, the positions are what
+    # contend).
+    for name, spec in specs.items():
+        hs["step " + name] = check_hash(torch, hash_nbr, "step " + name, spec,
+                                        step_pos, step_g)
+    del step_pos, step_g
     fused_launches = run_fused_path(torch, Runner, ngp_synthetic_cfg,
                                     fused_mlp, hash_nbr, mse2psnr)
     for pallas_mlp in (False, True):
         check_small_step(torch, Runner, ngp_synthetic_cfg, fused_mlp,
                          pallas_mlp)
 
-    head = "f8l4@2^19"
+    head = "step f8l4@2^19"
+    others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")
     src = "jnerf_tpu_torch/csrc/fused_mlp.cu"
+    no_lib = "no single PyTorch call computes it"
     kernels = [
-        {"name": "hash_encode_fwd (kernel F)", "route": "cuda",
-         "source": "jnerf_tpu_torch/csrc/hash_encode.cu",
-         "replaces": "jnerf_tpu/ops/hash_nbr.py:261",
-         "launches": launches["fwd"], "max_abs_err": stats["fwd"]["err"],
-         "ms": stats["fwd"][head][0], "plain_ms": stats["fwd"][head][1],
-         "shape": f"N={N_SAMPLES} {head}",
-         "f2l16@2^18": {"ms": stats["fwd"]["f2l16@2^18"][0],
-                        "plain_ms": stats["fwd"]["f2l16@2^18"][1]},
-         "fused_path_launches": fused_launches["hash_fwd"]},
-        {"name": "hash_encode_bwd (kernel B)", "route": "cuda",
-         "source": "jnerf_tpu_torch/csrc/hash_encode.cu",
-         "replaces": "jnerf_tpu/ops/hash_nbr.py:381",
-         "also_replaces": ["jnerf_tpu/ops/hash_nbr.py:430",
+        kernel_row(
+            "hash_encode_fwd (kernel F)", "jnerf_tpu_torch/csrc/hash_encode.cu",
+            "jnerf_tpu/ops/hash_nbr.py:261", launches["fwd"],
+            hs[head]["fwd"],
+            f"one headline step's {N_SAMPLES} kept samples, f8l4@2^19",
+            max_abs_err=max(h["fwd"]["err"] for h in hs.values()),
+            library=no_lib + " (a gather of bf16-rounded rows, each "
+            "product rounded to bf16, summed in f32)",
+            fused_path_launches=fused_launches["hash_fwd"],
+            **{k: {m: hs[k]["fwd"][m] for m in ("ms", "plain_ms", "bound_ms")}
+               for k in others}),
+        kernel_row(
+            "hash_encode_bwd (kernel B)", "jnerf_tpu_torch/csrc/hash_encode.cu",
+            "jnerf_tpu/ops/hash_nbr.py:381", launches["bwd"], hs[head]["bwd"],
+            f"one headline step's {N_SAMPLES} kept samples, f8l4@2^19",
+            also_replaces=["jnerf_tpu/ops/hash_nbr.py:430",
                            "jnerf_tpu/ops/hash_nbr.py:512"],
-         "launches": launches["bwd"], "max_abs_err": stats["bwd"]["err"],
-         "ms": stats["bwd"][head][0], "plain_ms": stats["bwd"][head][1],
-         "shape": f"N={N_SAMPLES} {head}",
-         "f2l16@2^18": {"ms": stats["bwd"]["f2l16@2^18"][0],
-                        "plain_ms": stats["bwd"]["f2l16@2^18"][1]},
-         "fused_path_launches": fused_launches["hash_bwd"]},
-        {"name": "fused_mlp_fwd (F-MLP)", "route": "cuda", "source": src,
-         "replaces": "jnerf_tpu/ops/fused_mlp.py:113",
-         "launches": fused_launches["fwd"], "max_abs_err": mlp["fwd"]["err"],
-         "ms": mlp["fwd"][N_SAMPLES][0], "plain_ms": mlp["fwd"][N_SAMPLES][1],
-         "shape": f"N={N_SAMPLES}",
-         f"N={N_RENDER}": {"ms": mlp["fwd"][N_RENDER][0],
-                           "plain_ms": mlp["fwd"][N_RENDER][1]}},
-        {"name": "fused_mlp_bwd (B-MLP)", "route": "cuda", "source": src,
-         "replaces": "jnerf_tpu/ops/fused_mlp.py:123",
-         "launches": fused_launches["bwd"], "max_abs_err": mlp["bwd"]["err"],
-         "ms": mlp["bwd"][N_SAMPLES][0], "plain_ms": mlp["bwd"][N_SAMPLES][1],
-         "shape": f"N={N_SAMPLES}"},
-        {"name": "fused_density_mlp (D-MLP)", "route": "cuda", "source": src,
-         "replaces": "jnerf_tpu/ops/fused_mlp.py:242",
-         "launches": launches["den"] + fused_launches["den"],
-         "on_path": "none: neither package calls it on a path; phase 3 "
-         "launches it against its twin",
-         "max_abs_err": mlp["den"]["err"],
-         "ms": mlp["den"][N_SAMPLES][0], "plain_ms": mlp["den"][N_SAMPLES][1],
-         "shape": f"N={N_SAMPLES}",
-         f"N={N_RENDER}": {"ms": mlp["den"][N_RENDER][0],
-                           "plain_ms": mlp["den"][N_RENDER][1]}},
+            max_abs_err=max(h["bwd"]["err"] for h in hs.values()),
+            library="index_put_(accumulate=True) of the precomputed weighted "
+            "contributions: the scatter alone",
+            fused_path_launches=fused_launches["hash_bwd"],
+            **{k: {m: hs[k]["bwd"][m] for m in ("ms", "plain_ms", "bound_ms",
+                                                "library_ms")}
+               for k in others}),
+        kernel_row(
+            "fused_mlp_fwd (F-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:113",
+            fused_launches["fwd"], dict(mlp["fwd"][N_SAMPLES], library_ms=None),
+            f"N={N_SAMPLES}", max_abs_err=mlp["fwd"]["err"], library=no_lib,
+            **{f"N={N_RENDER}": {m: mlp["fwd"][N_RENDER][m]
+                                 for m in ("ms", "plain_ms", "bound_ms")}}),
+        kernel_row(
+            "fused_mlp_bwd (B-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:123",
+            fused_launches["bwd"], dict(mlp["bwd"][N_SAMPLES], library_ms=None),
+            f"N={N_SAMPLES}", max_abs_err=mlp["bwd"]["err"], library=no_lib),
+        kernel_row(
+            "fused_density_mlp (D-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:242",
+            launches["den"] + fused_launches["den"],
+            dict(mlp["den"][N_SAMPLES], library_ms=None), f"N={N_SAMPLES}",
+            on_path="none: neither package calls it on a path; phase 3 "
+            "launches it against its twin",
+            max_abs_err=mlp["den"]["err"], library=no_lib,
+            **{f"N={N_RENDER}": {m: mlp["den"][N_RENDER][m]
+                                 for m in ("ms", "plain_ms", "bound_ms")}}),
     ]
+    for k in kernels:
+        k["max_abs_err"] = float(k["max_abs_err"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

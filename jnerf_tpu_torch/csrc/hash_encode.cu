@@ -14,12 +14,37 @@
 //
 // What bounds them: both are random-access bound.  Per (sample, level)
 // kernel F reads 8 table rows of 4F bytes at hashed addresses and kernel B
-// issues 8F f32 atomics to them; the arithmetic is a few dozen flops.
-// At the headline shapes (2^17 samples, f8l4, 2^19-entry levels) the
-// table (50 MB f32) about fits the 50 MB L2, so the rows mostly hit L2.
-// This first version keeps one thread per (sample, level) and plain
-// scalar loads and atomics; wider loads, float4 atomics and a
-// deterministic sort + segmented-sum backward are later work.
+// adds 8 rows of 4F bytes into the gradient; the arithmetic is a few
+// dozen flops.  At the headline shapes (2^17 samples, f8l4, 2^19-entry
+// levels) the table (50 MB f32) about fits the 50 MB L2, so the rows
+// mostly hit L2.  Kernel F keeps one thread per (sample, level) with
+// scalar loads.
+//
+// Kernel B is paced by the L2's reduction units, not by bytes: its
+// least traffic is pos + g + grad (68.8 MB at the headline, 21 us at
+// 3.35 TB/s), but one thread per (sample, level) issuing 8F scalar f32
+// atomics made 33.5 M L2 reductions a launch, and on a step's samples,
+// which lie in runs along rays, the coarse levels' rows took most of them
+// at the same addresses, where same-address reductions serialize.  So:
+// - one 16-byte reduction (atomicAdd on float4, global memory on sm_90)
+//   per 4 features, float2 at F=2: 2 instead of 8 per corner at F=8;
+// - a warp takes 32 consecutive samples at one level, the lanes that hit
+//   the same entry are found with __match_any_sync and summed in
+//   registers, so one reduction per distinct entry reaches L2.
+//   Consecutive samples of a step lie along one ray and share cells.
+//   Chosen over a per-block shared-memory accumulator: level 0 of f8l4
+//   alone (128 KB) would leave one block per SM and flush 128 KB per
+//   block, and shared f32 atomics at one address serialize as L2 ones
+//   do.  It runs on every level: timed on an NVIDIA H100 80GB HBM3
+//   (700 W) on one headline step's own samples, kernel B took 0.091 ms
+//   so, 0.242 ms with only the levels of <= 512 cells an axis aggregated
+//   and 0.472 ms with none; on uniform samples the three were within 3%.
+//   Compaction's empty slots repeat the last ray's last sample, so even
+//   the finest level's entries repeat within a warp;
+// - the block reads its samples' g rows (F*L f32, feature-major) once,
+//   coalesced, into shared memory.
+// The atomics' order still varies, so the last bits of the gradient vary
+// from run to run; a deterministic backward is queued work (ROADMAP).
 //
 // Numerics follow the JAX package exactly:
 // - the cell index is floor(fmul_rn(p, scale) + 0.5) with no FMA
@@ -121,27 +146,89 @@ __global__ void hash_fwd_kernel(const float* __restrict__ pos,
   for (int f = 0; f < F; ++f) o[f * L] = acc[f];
 }
 
+// Adds v into one gradient row of F f32 with 16-byte (F >= 4) or 8-byte
+// (F = 2) vector reductions.  Rows are 4F-byte aligned: the gradient is
+// a fresh, 256-byte aligned allocation.
 template <int F>
-__global__ void hash_bwd_kernel(const float* __restrict__ pos,
-                                const float* __restrict__ g,
-                                float* __restrict__ grad, int n, Levels lv) {
-  const int L = lv.n_levels;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)n * L) return;
-  const int64_t s = i / L;
-  const int l = (int)(i - s * L);
-  float X[3][2];
-  const uint32_t e0 = cell(lv, l, pos + s * 3, X);
-  float gv[F];
-  const float* gs = g + s * (int64_t)(F * L) + l;
+__device__ __forceinline__ void red_row(float* row, const float (&v)[F]) {
+  if constexpr (F >= 4) {
 #pragma unroll
-  for (int f = 0; f < F; ++f) gv[f] = gs[f * L];
+    for (int q = 0; q < F / 4; ++q)
+      atomicAdd(reinterpret_cast<float4*>(row) + q,
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(row), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(row, v[0]);
+  }
+}
+
+// Sums v over the lanes of `peers` (the lanes that hold the same entry)
+// in log2(|peers|) shuffle rounds; returns true on the lowest peer, which
+// then holds the sum.  All 32 lanes take part.
+template <int F>
+__device__ __forceinline__ bool reduce_peers(unsigned peers, float (&v)[F]) {
+  const int lane = threadIdx.x & 31;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  const bool lowest = rank == 0;
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(0xffffffffu, above)) {
+    const int next = __ffs(above);  // 1-based; 0 when none is left
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float w = corner_weight(X, c);
-    float* row = grad + corner_entry(lv, l, e0, c) * F;
+    for (int f = 0; f < F; ++f) {
+      const float t = __shfl_sync(0xffffffffu, v[f], next > 0 ? next - 1 : lane);
+      if (next) v[f] += t;
+    }
+    above &= ~__ballot_sync(0xffffffffu, rank & 1u);
+    rank >>= 1;
+  }
+  return lowest;
+}
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// A block takes 32 * chunks consecutive samples; warp task t covers the
+// 32 samples of chunk t / L at level t % L.  g's rows for the block sit in
+// shared memory with a row stride of F*L + 1 words (odd: a warp's lanes,
+// one sample each, read distinct banks).
+template <int F>
+__global__ void __launch_bounds__(kBwdThreads)
+    hash_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ g,
+                    float* __restrict__ grad, int n, int chunks, Levels lv) {
+  extern __shared__ float sg[];
+  const int L = lv.n_levels, FL = F * L, ld = FL + 1;
+  const int64_t s0 = (int64_t)blockIdx.x * 32 * chunks;
+  const int rows = (int)min((int64_t)32 * chunks, (int64_t)n - s0);
+  const float* gb = g + s0 * FL;
+  for (int i = threadIdx.x; i < rows * FL; i += kBwdThreads) {
+    const int r = i / FL;
+    sg[r * ld + (i - r * FL)] = gb[i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int task = threadIdx.x >> 5; task < chunks * L; task += kBwdWarps) {
+    const int chunk = task / L, l = task - chunk * L;
+    const int r = chunk * 32 + lane;
+    const bool live = r < rows;
+    float X[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+    float gv[F];
+    uint32_t e0 = 0;
+    if (live) e0 = cell(lv, l, pos + (s0 + r) * 3, X);
 #pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(row + f, __fmul_rn(w, gv[f]));
+    for (int f = 0; f < F; ++f) gv[f] = live ? sg[r * ld + f * L + l] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float w = corner_weight(X, c);
+      const uint32_t entry = (uint32_t)corner_entry(lv, l, e0, c);
+      float v[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[f] = __fmul_rn(w, gv[f]);
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, live ? entry : 0xffffffffu);
+      if (reduce_peers<F>(peers, v) && live)
+        red_row<F>(grad + (size_t)entry * F, v);
+    }
   }
 }
 
@@ -209,12 +296,15 @@ extern "C" int hash_encode_bwd(const void* pos, const void* g, void* grad,
   const float* p = (const float*)pos;
   const float* gg = (const float*)g;
   float* o = (float*)grad;
-  const int blocks = grid_for(n, L);
+  // Enough 32-sample chunks that every warp of the block has a level.
+  const int chunks = L >= kBwdWarps ? 1 : kBwdWarps / L;
+  const int blocks = (int)(((int64_t)n + 32 * chunks - 1) / (32 * chunks));
+  const size_t smem = sizeof(float) * 32 * chunks * (F * L + 1);  // <= 33 KB
   switch (F) {
-    case 1: hash_bwd_kernel<1><<<blocks, kThreads, 0, st>>>(p, gg, o, n, lv); break;
-    case 2: hash_bwd_kernel<2><<<blocks, kThreads, 0, st>>>(p, gg, o, n, lv); break;
-    case 4: hash_bwd_kernel<4><<<blocks, kThreads, 0, st>>>(p, gg, o, n, lv); break;
-    case 8: hash_bwd_kernel<8><<<blocks, kThreads, 0, st>>>(p, gg, o, n, lv); break;
+    case 1: hash_bwd_kernel<1><<<blocks, kBwdThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
+    case 2: hash_bwd_kernel<2><<<blocks, kBwdThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
+    case 4: hash_bwd_kernel<4><<<blocks, kBwdThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
+    case 8: hash_bwd_kernel<8><<<blocks, kBwdThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

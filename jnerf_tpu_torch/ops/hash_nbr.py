@@ -14,10 +14,12 @@ from the master table, so that layout and its adjoint have no
 counterpart.
 
 Two CUDA kernels (`jnerf_tpu_torch/csrc/hash_encode.cu`) compute these:
-`encode_fwd` (kernel F) and `grad_table` (kernel B).  Each wrapper runs
-its plain PyTorch twin (`hash_encode_plain`, `grad_table_plain`) only
-when given CPU tensors; for CUDA tensors it launches the kernel or
-raises.  Each wrapper counts its launches in ``.launches``.
+`encode_fwd` (kernel F) and `grad_table` (kernel B; 16-byte vector
+reductions, a warp's contributions summed per entry before they reach
+L2).  Each wrapper runs its plain PyTorch twin (`hash_encode_plain`,
+`grad_table_plain`) only when given CPU tensors; for CUDA tensors it
+launches the kernel or raises.  Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations

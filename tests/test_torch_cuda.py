@@ -78,6 +78,48 @@ def test_kernels_match_plain(dev, name):
     assert float((bk - bp).abs().max()) <= 1e-5 * float(bp.abs().max())
 
 
+# The headline's table and the f2l16 one that the bench times at 2^18.
+BIG_SPECS = {
+    "f8l4@2^19": dict(n_levels=4, n_features_per_level=8,
+                      log2_hashmap_size=19, max_level_size=1 << 19),
+    "f2l16@2^18": dict(n_levels=16, n_features_per_level=2,
+                       log2_hashmap_size=19, max_level_size=1 << 18),
+}
+
+
+def _clustered(n, dev, n_rays=64, seed=0):
+    """Samples as a training step feeds kernel B: runs of consecutive
+    samples along rays (sqrt(3)/1024 apart, as the march steps) that start
+    inside a small ball, so a warp's samples share the coarse cells; n need
+    not divide into the rays."""
+    rng = np.random.default_rng(seed)
+    per = -(-n // n_rays)
+    start = 0.5 + rng.uniform(-0.1, 0.1, size=(n_rays, 1, 3))
+    dirs = rng.normal(size=(n_rays, 1, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    t = np.arange(per)[None, :, None] * (np.sqrt(3.0) / 1024)
+    pos = np.clip(start + t * dirs, 0.0, 1.0).reshape(-1, 3)[:n]
+    return torch.from_numpy(pos.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1 << 17, 100_003])
+@pytest.mark.parametrize("name", list(BIG_SPECS))
+def test_grad_table_clustered_matches_plain(dev, name, n):
+    """Kernel B on clustered samples (the inputs that contend on the
+    coarse levels' entries), at the headline's shapes and at a ragged N
+    (a part-empty last block): within the atomics' summation order (1e-5
+    of the largest gradient) of its twin."""
+    spec = HashGridSpec(**BIG_SPECS[name])
+    L, F = spec.n_levels, spec.n_features_per_level
+    pos = _clustered(n, dev)
+    g = torch.randn((n, F * L), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev)
+    ref = hash_nbr.grad_table_plain(spec, pos, g)
+    got = hash_nbr.grad_table(spec, pos, g)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
 def test_autograd_goes_through_both_kernels(dev):
     """The autograd.Function launches kernel F forward and kernel B
     backward, and its table gradient matches the twin's on the upstream
@@ -130,9 +172,12 @@ def test_fused_mlp_kernels_match_plain(dev, n):
     """F-MLP, B-MLP and D-MLP against their twins: the same bf16 rounding
     points and f32 sums in another order, so atol 1e-5 on the outputs and
     dx and 1e-5 of each weight gradient's largest entry (a dropped bf16
-    rounding was off by 1.3e-2 or more).  B-MLP sums in a fixed order: two
-    runs are equal bit for bit.  bf16 feature rows, as the network feeds
-    them, give what their f32 originals give."""
+    rounding was off by 1.3e-2 or more).  B-MLP sums on the tensor cores
+    and re-sums, in the twin's order, the few sums that lie at a bf16
+    rounding boundary or at zero, so it rounds and masks as the twin does
+    and the same bounds hold.  B-MLP sums in a fixed order: two runs are
+    equal bit for bit.  bf16 feature rows, as the network feeds them, give
+    what their f32 originals give."""
     ws, x, d, g = _mlp_inputs(dev, n)
     out = fused_mlp.fused_mlp_fwd(ws, x, d)
     ref = fused_mlp.fused_ngp_mlp_plain(ws, x, d)

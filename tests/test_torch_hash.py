@@ -91,19 +91,71 @@ def test_forward_matches_jax(name):
     np.testing.assert_allclose(n(out), ref, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", list(SPECS))
-def test_grad_table_matches_pallas_interpret(name):
+def _clustered(n_samples=1024, n_rays=8, seed=3):
+    """Samples as a training step feeds kernel B: runs of consecutive
+    samples along a few rays (128 each, sqrt(3)/1024 apart, as the march
+    steps) that start inside a small ball, so that consecutive samples
+    share the coarse levels' cells."""
+    rng = np.random.default_rng(seed)
+    per = n_samples // n_rays
+    start = 0.5 + rng.uniform(-0.1, 0.1, size=(n_rays, 1, 3))
+    dirs = rng.normal(size=(n_rays, 1, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    t = np.arange(per)[None, :, None] * (np.sqrt(3.0) / 1024)
+    return np.clip(start + t * dirs, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "name,samples",
+    [pytest.param(k, "uniform", id=k) for k in SPECS]
+    + [pytest.param(k, "clustered", id=f"{k}-clustered") for k in SPECS])
+def test_grad_table_matches_pallas_interpret(name, samples):
     """Table gradient against the TPU kernels (#1-#3, run in interpret
-    mode) on the same f32 upstream gradient.  Both sum w_c * g in f32; only
-    the order of the sums differs, which moves an entry by a few f32 ulps
-    of the sum of its terms' magnitudes (up to ~100 here): rtol 1e-4,
-    atol 5e-5 on gradients of order 10."""
+    mode) on the same f32 upstream gradient, on uniform samples and on
+    clustered ones (runs along rays: the inputs on which many
+    contributions land on the same entries).  Both sum w_c * g in f32;
+    only the order of the sums differs, which moves an entry by a few f32
+    ulps of the sum of its terms' magnitudes (up to ~100 uniform, ~1000
+    clustered): rtol 1e-4, atol 5e-5 on gradients of order 10."""
     ts, js = HashGridSpec(**_kw(name)), JaxSpec(**_kw(name))
     _, pos, g = _inputs(ts)
+    if samples == "clustered":
+        pos = _clustered(pos.shape[0])
     ref = n(jnbr._grad_table_pallas(js, jnp.asarray(pos), jnp.asarray(g),
                                     interpret=True))
     got = n(tnbr.grad_table(ts, t(pos), t(g)))
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=5e-5)
+
+
+# The headline's table and the f2l16 ones of the bench (level caps 2^18
+# and 2^19), with their entry counts.
+BENCH_SPECS = {
+    "f8l4@2^19": (dict(n_levels=4, n_features_per_level=8,
+                       log2_hashmap_size=19, max_level_size=1 << 19),
+                  1_576_960),
+    "f2l16@2^18": (dict(n_levels=16, n_features_per_level=2,
+                        log2_hashmap_size=19, max_level_size=1 << 18),
+                   3_214_536),
+    "f2l16@2^19": (dict(n_levels=16, n_features_per_level=2,
+                        log2_hashmap_size=19, max_level_size=1 << 19),
+                   None),
+}
+
+
+@pytest.mark.parametrize("name", list(BENCH_SPECS))
+def test_bench_spec_geometry_matches_jax(name):
+    """The tables that kernel B is timed on: the same level sizes, offsets,
+    scales, hash multipliers and corner offsets as the JAX package's, and
+    the entry counts behind chip_smoke.py's byte counts."""
+    kw, n_entries = BENCH_SPECS[name]
+    ts, js = HashGridSpec(**kw), JaxSpec(**kw)
+    for field in ("scales", "resolutions", "level_sizes", "level_offsets",
+                  "n_entries"):
+        assert getattr(ts, field) == getattr(js, field), field
+    assert level_multipliers(ts) == jax_multipliers(js)
+    np.testing.assert_array_equal(_corner_offsets(ts), jax_corner_offsets(js))
+    if n_entries is not None:
+        assert ts.n_entries == n_entries
 
 
 @pytest.mark.parametrize("name", ["f2l4", "f8l4"])
