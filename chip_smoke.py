@@ -11,9 +11,10 @@ on failure:
    fused_mlp.cu, in parallel), with ptxas' register and spill lines;
 3. each kernel against its plain PyTorch twin on the card at the main
    path's shapes, with errors and times: the hash kernels F and B at 2^17
-   uniform samples (f8l4 at a 2^19 level cap and f2l16 at 2^18); the fused
-   MLP kernels F-MLP and D-MLP at 2^17 rows (the training M) and 2^20 rows
-   (one render chunk), B-MLP at 2^17;
+   uniform samples (f8l4 at a 2^19 level cap and f2l16 at 2^18; kernel F
+   timed with the bf16 output the path uses, and checked to be its f32
+   output rounded); the fused MLP kernels F-MLP and D-MLP at 2^17 rows (the
+   training M) and 2^20 random rows (a render chunk's size), B-MLP at 2^17;
 4. the slice: 48 training steps of the f8l4+m17f2k19 bench headline
    (Runner(device='cuda').train_range), with launch counts that show the
    main path went through both hash kernels, steps/s and peak memory;
@@ -23,8 +24,11 @@ on failure:
    (index_put_ with accumulate=True);
 5. the fused path: the same headline with cfg.use_pallas_mlp, 48 steps
    (B-MLP launched once a step), then its test split rendered
-   (render_test), F-MLP launched there too, each image's PSNR, and the
-   same images rendered with the plain MLP chain for comparison;
+   (render_test), each image's PSNR, and the same images rendered with the
+   plain MLP chain for comparison; kernel F must run in every render chunk
+   and F-MLP in every fused one.  One chunk of test image 0 is captured
+   (its 2^20 positions and the bf16 rows that reach F-MLP), and kernel F
+   (both specs) and F-MLP are checked and timed on it;
 6. one small training step on the card against the same step on the CPU
    (the plain twins, which the CPU tests hold against the JAX package),
    with the plain MLP chain and with the fused kernels.
@@ -94,10 +98,12 @@ def _hash_flops(n: int, n_levels: int, n_features: int) -> int:
     return n * n_levels * (24 + 8 * (2 + 2 * n_features))
 
 
-def hash_fwd_work(n, n_levels, n_features, rows_read) -> dict:
+def hash_fwd_work(n, n_levels, n_features, rows_read, out_bytes=4) -> dict:
     """Kernel F: pos [n, 3] and the table rows it reads (rows_read of 4F
-    bytes, each read once) in, [n, F*L] f32 out."""
-    nbytes = 12 * n + 4 * n_features * rows_read + 4 * n_features * n_levels * n
+    bytes, each read once) in, [n, F*L] out at out_bytes a value (4 f32,
+    2 bf16)."""
+    nbytes = (12 * n + 4 * n_features * rows_read
+              + out_bytes * n_features * n_levels * n)
     return work(nbytes, _hash_flops(n, n_levels, n_features), F32_FLOP_PER_S)
 
 
@@ -191,68 +197,91 @@ def corner_entries(torch, hash_nbr, spec, pos):
     return torch.cat(idx), torch.cat(wts)
 
 
-def check_hash(torch, hash_nbr, name, spec, pos, g):
-    """Kernels F and B against their twins on one spec and one set of
-    samples (positions pos [N, 3], f32 upstream gradient g [N, F*L]):
-    e0 mismatches and errors, then times of both kernels and twins, and of
-    the scatter alone (index_put_ with accumulate=True of the weighted
-    contributions, computed outside the timed region)."""
+def check_hash_fwd(torch, hash_nbr, name, spec, pos):
+    """Kernel F against its twin on one spec and one set of positions
+    pos [N, 3], with a random table: e0 mismatches and the error of the f32
+    output, then the bf16 output (the encoder's compute dtype on the path),
+    which must be the f32 output rounded, bit for bit.  Times the bf16
+    kernel against the twin followed by the cast, and the f32 kernel once.
+    The bound counts each table row the samples read once (torch.unique)."""
     dev = pos.device
     L, F = spec.n_levels, spec.n_features_per_level
     n = pos.shape[0]
+    bf16 = torch.bfloat16
     gen = torch.Generator(dev).manual_seed(1)
     table = torch.randn((spec.n_entries, F), generator=gen, device=dev) * 0.1
     e0k = torch.zeros((n, L), dtype=torch.int32, device=dev)
     e0p = torch.zeros_like(e0k)
     fk = hash_nbr.encode_fwd(spec, table, pos, e0_out=e0k)
+    bk = hash_nbr.encode_fwd(spec, table, pos, out_dtype=bf16)
     fp = hash_nbr.hash_encode_plain(spec, table, pos, e0_out=e0p)
+    torch.cuda.synchronize()
+    e0_bad = int((e0k != e0p).sum())
+    f_err = float((fk - fp).abs().max())
+    rounded = torch.equal(bk, fk.to(bf16))
+    print(f"kernel F [{name}]: e0 mismatches {e0_bad} of {n * L}, max abs err "
+          f"{f_err:.3e} (tolerance abs {FWD_ATOL:g}, e0 0); bf16 output is the "
+          f"f32 output rounded: {rounded}", flush=True)
+    if e0_bad or not f_err <= FWD_ATOL or not rounded:
+        raise SystemExit(f"kernel F disagrees with its plain twin at {name}")
+    del e0k, e0p, fk, bk, fp
+    ms, plain_ms, (k1, k2, p1, p2) = time_pair(
+        lambda: hash_nbr.encode_fwd(spec, table, pos, out_dtype=bf16),
+        lambda: hash_nbr.hash_encode_plain(spec, table, pos).to(bf16))
+    f32_ms = cuda_ms(lambda: hash_nbr.encode_fwd(spec, table, pos))
+    rows = int(torch.unique(corner_entries(torch, hash_nbr, spec, pos)[0])
+               .numel())
+    out = dict(hash_fwd_work(n, L, F, rows, out_bytes=2), err=f_err, ms=ms,
+               plain_ms=plain_ms, f32_ms=f32_ms, library_ms=None)
+    print(f"time fwd [{name}], N={n}: kernel (bf16 out) {ms:.4f} ms ({k1:.4f}, "
+          f"{k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); f32 out "
+          f"{f32_ms:.4f} ms; bound {out['bound_ms']:.4f} ms ({rows} table rows "
+          f"read)", flush=True)
+    return out
+
+
+def check_hash(torch, hash_nbr, name, spec, pos, g):
+    """Kernels F and B against their twins on one spec and one set of
+    samples (positions pos [N, 3], f32 upstream gradient g [N, F*L]):
+    kernel F as check_hash_fwd; kernel B's error and time, and the time of
+    the scatter alone (index_put_ with accumulate=True of the weighted
+    contributions, computed outside the timed region)."""
+    dev = pos.device
+    L, F = spec.n_levels, spec.n_features_per_level
+    n = pos.shape[0]
+    out = {"fwd": check_hash_fwd(torch, hash_nbr, name, spec, pos)}
     bk = hash_nbr.grad_table(spec, pos, g)
     bp = hash_nbr.grad_table_plain(spec, pos, g)
     idx, wts = corner_entries(torch, hash_nbr, spec, pos)
     vals = (wts[:, None] * g.reshape(n, F, L).permute(2, 0, 1)
             .repeat_interleave(8, dim=0).reshape(-1, F))
     torch.cuda.synchronize()
-    e0_bad = int((e0k != e0p).sum())
-    f_err = float((fk - fp).abs().max())
     b_err = float((bk - bp).abs().max())
     b_max = float(bp.abs().max())
-    print(f"kernel F [{name}]: e0 mismatches {e0_bad} of {n * L}, max abs err "
-          f"{f_err:.3e} (tolerance abs {FWD_ATOL:g}, e0 0)", flush=True)
     print(f"kernel B [{name}]: max abs err {b_err:.3e}, rel to max "
           f"{b_err / b_max:.3e} (tolerance {BWD_RTOL_OF_MAX:g} of max |ref| = "
           f"{b_max:.4g})", flush=True)
-    if e0_bad or not f_err <= FWD_ATOL:
-        raise SystemExit(f"kernel F disagrees with its plain twin at {name}")
     if not b_err <= BWD_RTOL_OF_MAX * b_max:
         raise SystemExit(f"kernel B disagrees with its plain twin at {name}")
 
     def scatter():
-        out = torch.zeros((spec.n_entries, F), dtype=torch.float32, device=dev)
-        return out.index_put_((idx,), vals, accumulate=True)
+        acc = torch.zeros((spec.n_entries, F), dtype=torch.float32, device=dev)
+        return acc.index_put_((idx,), vals, accumulate=True)
 
     lib_err = float((scatter() - bp).abs().max())
-    out = {"fwd": {"err": f_err}, "bwd": {"err": b_err}}
-    runs = {"fwd": (lambda: hash_nbr.encode_fwd(spec, table, pos),
-                    lambda: hash_nbr.hash_encode_plain(spec, table, pos)),
-            "bwd": (lambda: hash_nbr.grad_table(spec, pos, g),
-                    lambda: hash_nbr.grad_table_plain(spec, pos, g))}
-    for kern, (k_fn, p_fn) in runs.items():
-        ms, plain_ms, (k1, k2, p1, p2) = time_pair(k_fn, p_fn)
-        print(f"time {kern} [{name}], N={n}: kernel {ms:.4f} ms ({k1:.4f}, "
-              f"{k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})",
-              flush=True)
-        out[kern].update(ms=ms, plain_ms=plain_ms)
-    rows = int(torch.unique(idx).numel())
-    out["fwd"].update(hash_fwd_work(n, L, F, rows), library_ms=None)
-    out["bwd"].update(hash_bwd_work(n, L, F, spec.n_entries))
+    ms, plain_ms, (k1, k2, p1, p2) = time_pair(
+        lambda: hash_nbr.grad_table(spec, pos, g),
+        lambda: hash_nbr.grad_table_plain(spec, pos, g))
+    print(f"time bwd [{name}], N={n}: kernel {ms:.4f} ms ({k1:.4f}, "
+          f"{k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})",
+          flush=True)
     lib_ms = (cuda_ms(scatter) + cuda_ms(scatter)) / 2
-    out["bwd"].update(library_ms=lib_ms)
+    out["bwd"] = dict(hash_bwd_work(n, L, F, spec.n_entries), err=b_err, ms=ms,
+                      plain_ms=plain_ms, library_ms=lib_ms)
     print(f"time bwd [{name}]: the scatter alone "
           f"(index_put_ accumulate) {lib_ms:.4f} ms, max abs err "
           f"{lib_err:.3e}; bound {out['bwd']['bound_ms']:.4f} ms "
-          f"({out['bwd']['bytes']} B); kernel F bound "
-          f"{out['fwd']['bound_ms']:.4f} ms ({rows} table rows read)",
-          flush=True)
+          f"({out['bwd']['bytes']} B)", flush=True)
     del idx, wts, vals
     return out
 
@@ -282,6 +311,31 @@ def mlp_rows(torch, gen, n):
     return x, d, torch.randn((n, 4), generator=gen, device="cuda")
 
 
+def check_fmlp_rows(torch, fused_mlp, name, ws, x, d):
+    """F-MLP against its twin on rows x [N, 32], d [N, 16] (bf16): max abs
+    error within MLP_ATOL and two runs equal bit for bit, then the times of
+    both and the bound."""
+    n = x.shape[0]
+    k1 = fused_mlp.fused_mlp_fwd(ws, x, d)
+    k2 = fused_mlp.fused_mlp_fwd(ws, x, d)
+    ref = fused_mlp.fused_ngp_mlp_plain(ws, x, d)
+    torch.cuda.synchronize()
+    err, same = float((k1 - ref).abs().max()), torch.equal(k1, k2)
+    print(f"kernel F-MLP [{name}], N={n}: max abs err {err:.3e} (tolerance "
+          f"{MLP_ATOL:g}); two runs bitwise equal: {same}", flush=True)
+    if not (err <= MLP_ATOL and same):
+        raise SystemExit(f"kernel F-MLP disagrees with its plain twin at {name}")
+    del k1, k2, ref
+    ms, plain_ms, four = time_pair(
+        lambda: fused_mlp.fused_mlp_fwd(ws, x, d),
+        lambda: fused_mlp.fused_ngp_mlp_plain(ws, x, d))
+    print(f"time mlp fwd [{name}], N={n}: kernel {ms:.4f} ms ({four[0]:.4f}, "
+          f"{four[1]:.4f}), plain {plain_ms:.4f} ms ({four[2]:.4f}, "
+          f"{four[3]:.4f})", flush=True)
+    return dict(mlp_fwd_work(n), err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=None)
+
+
 def check_mlp_kernels(torch, fused_mlp):
     """Phase 3, fused MLP: F-MLP and D-MLP at the training M and at one
     render chunk, B-MLP at the training M, against their twins."""
@@ -290,16 +344,14 @@ def check_mlp_kernels(torch, fused_mlp):
     stats = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}, "den": {"err": 0.0}}
     for n in (N_SAMPLES, N_RENDER):
         x, d, g = mlp_rows(torch, gen, n)
-        fk = fused_mlp.fused_mlp_fwd(ws, x, d)
-        fp = fused_mlp.fused_ngp_mlp_plain(ws, x, d)
+        stats["fwd"][n] = check_fmlp_rows(torch, fused_mlp, "random rows", ws,
+                                          x, d)
+        stats["fwd"]["err"] = max(stats["fwd"]["err"], stats["fwd"][n]["err"])
         dk = fused_mlp.fused_density_mlp(ws[0], ws[1], x)
         dp = fused_mlp.fused_density_mlp_plain(ws[0], ws[1], x)
         torch.cuda.synchronize()
-        errs = {"fwd": float((fk - fp).abs().max()),
-                "den": float((dk - dp).abs().max())}
-        runs = {"fwd": (lambda: fused_mlp.fused_mlp_fwd(ws, x, d),
-                        lambda: fused_mlp.fused_ngp_mlp_plain(ws, x, d)),
-                "den": (lambda: fused_mlp.fused_density_mlp(ws[0], ws[1], x),
+        errs = {"den": float((dk - dp).abs().max())}
+        runs = {"den": (lambda: fused_mlp.fused_density_mlp(ws[0], ws[1], x),
                         lambda: fused_mlp.fused_density_mlp_plain(
                             ws[0], ws[1], x))}
         if n == N_SAMPLES:
@@ -326,21 +378,20 @@ def check_mlp_kernels(torch, fused_mlp):
             runs["bwd"] = (lambda: fused_mlp.fused_mlp_bwd(ws, x, d, g),
                            lambda: fused_mlp.fused_ngp_mlp_bwd_plain(
                                ws, x, d, g))
-        for kern, name in (("fwd", "F-MLP"), ("den", "D-MLP")):
-            print(f"kernel {name}, N={n}: max abs err {errs[kern]:.3e} "
-                  f"(tolerance {MLP_ATOL:g})", flush=True)
-            if not errs[kern] <= MLP_ATOL:
-                raise SystemExit(f"kernel {name} disagrees with its plain twin")
+        print(f"kernel D-MLP, N={n}: max abs err {errs['den']:.3e} "
+              f"(tolerance {MLP_ATOL:g})", flush=True)
+        if not errs["den"] <= MLP_ATOL:
+            raise SystemExit("kernel D-MLP disagrees with its plain twin")
         for kern, (k_fn, p_fn) in runs.items():
             ms, plain_ms, four = time_pair(k_fn, p_fn)
             print(f"time mlp {kern}, N={n}: kernel {ms:.4f} ms ({four[0]:.4f}, "
                   f"{four[1]:.4f}), plain {plain_ms:.4f} ms ({four[2]:.4f}, "
                   f"{four[3]:.4f})", flush=True)
             stats[kern][n] = dict(
-                {"fwd": mlp_fwd_work, "bwd": mlp_bwd_work,
-                 "den": density_work}[kern](n), ms=ms, plain_ms=plain_ms)
+                {"bwd": mlp_bwd_work, "den": density_work}[kern](n), ms=ms,
+                plain_ms=plain_ms)
             stats[kern]["err"] = max(stats[kern]["err"], errs[kern])
-        del x, d, g, fk, fp, dk, dp
+        del x, d, g, dk, dp
     return stats
 
 
@@ -423,16 +474,19 @@ def run_fused_path(torch, Runner, ngp_synthetic_cfg, fused_mlp, hash_nbr,
     n_img = runner.dataset["test"].n_images
     u = torch.rand((runner.render_chunk_rays,), device="cuda",
                    generator=torch.Generator("cuda").manual_seed(0))
+    chunks = n_img * -(-runner.H * runner.W // runner.render_chunk_rays)
     renders = {}
     for fused in (True, False):
         runner.model._fused_ok = fused
         fused_mlp.fused_mlp_fwd.launches = 0
+        hash_nbr.encode_fwd.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mses = runner.render_test(save_img=False, u=u)
         torch.cuda.synchronize()
         per_img = (time.perf_counter() - t0) / n_img
-        launches = fused_mlp.fused_mlp_fwd.launches
+        launches = (fused_mlp.fused_mlp_fwd.launches,
+                    hash_nbr.encode_fwd.launches)
         imgs = [runner.render_img("test", img_id=i, u=u)[0]
                 for i in range(n_img)]
         renders[fused] = (imgs, launches)
@@ -440,10 +494,14 @@ def run_fused_path(torch, Runner, ngp_synthetic_cfg, fused_mlp, hash_nbr,
               f"{n_img} images of {runner.W}x{runner.H}, "
               f"{per_img * 1e3:.3f} ms per image, PSNR "
               f"{', '.join(f'{float(mse2psnr(m)):.3f}' for m in mses)} dB, "
-              f"F-MLP launches {launches}", flush=True)
+              f"launches F-MLP {launches[0]}, kernel F {launches[1]} "
+              f"({chunks} chunks)", flush=True)
     runner.model._fused_ok = True
-    if renders[True][1] <= 0 or renders[False][1] != 0:
-        raise SystemExit("F-MLP did not run (only) on the fused render")
+    (f_mlp, f_hash), (p_mlp, p_hash) = renders[True][1], renders[False][1]
+    if f_mlp < chunks or f_hash < chunks or p_hash < chunks or p_mlp != 0:
+        raise SystemExit(f"the render did not launch kernel F in every chunk "
+                         f"and F-MLP in every fused one: {renders[True][1]} "
+                         f"fused, {renders[False][1]} plain, {chunks} chunks")
     diffs = [abs(a - b) for a, b in zip(renders[True][0], renders[False][0])]
     max_diff = max(float(x.max()) for x in diffs)
     mean_diff = sum(float(x.mean()) for x in diffs) / len(diffs)
@@ -454,8 +512,46 @@ def run_fused_path(torch, Runner, ngp_synthetic_cfg, fused_mlp, hash_nbr,
         raise SystemExit("the fused render disagrees with the plain chain's")
     if not all(math.isfinite(float(x.sum())) for x in diffs):
         raise SystemExit("non-finite render")
-    return dict(train_launches, fwd=train_launches["fwd"] + renders[True][1],
-                den=dmlp_launches(fused_mlp, "the fused path"))
+    launches = dict(train_launches, fwd=train_launches["fwd"] + f_mlp,
+                    render_fwd=f_mlp, render_hash_fwd=f_hash,
+                    den=dmlp_launches(fused_mlp, "the fused path"))
+    return launches, capture_render_chunk(runner, fused_mlp, u)
+
+
+def capture_render_chunk(runner, fused_mlp, u):
+    """Render test image 0 with the model's forward and F-MLP wrapped, and
+    return what reached them in its middle chunk (rays through the image's
+    centre rows): the warped positions ``pos`` [4096 * 256, 3] and F-MLP's
+    inputs ``ws`` (the five weights), ``x`` (bf16 [.., 32], kernel F's
+    output) and ``d`` (bf16 [.., 16])."""
+    want = -(-runner.H * runner.W // runner.render_chunk_rays) // 2
+    got, calls = {}, {"fwd": 0, "mlp": 0}
+    model, orig_mlp = runner.model, fused_mlp.fused_ngp_mlp
+    orig_fwd = model.forward
+
+    def forward(pos, dirs):
+        if calls["fwd"] == want:
+            got["pos"] = pos.detach().contiguous().clone()
+        calls["fwd"] += 1
+        return orig_fwd(pos, dirs)
+
+    def mlp(weights, pos_feat, dir_feat):
+        if calls["mlp"] == want:
+            got.update(ws=[w.detach().clone() for w in weights],
+                       x=pos_feat.detach().clone(), d=dir_feat.detach().clone())
+        calls["mlp"] += 1
+        return orig_mlp(weights, pos_feat, dir_feat)
+
+    model.forward = forward
+    fused_mlp.fused_ngp_mlp = mlp
+    try:
+        runner.render_img("test", img_id=0, u=u)
+    finally:
+        del model.forward
+        fused_mlp.fused_ngp_mlp = orig_mlp
+    if "x" not in got:
+        raise SystemExit("the render did not reach F-MLP")
+    return got
 
 
 def dmlp_launches(fused_mlp, path):
@@ -660,14 +756,30 @@ def main() -> int:
         hs["step " + name] = check_hash(torch, hash_nbr, "step " + name, spec,
                                         step_pos, step_g)
     del step_pos, step_g
-    fused_launches = run_fused_path(torch, Runner, ngp_synthetic_cfg,
-                                    fused_mlp, hash_nbr, mse2psnr)
+    fused_launches, chunk = run_fused_path(torch, Runner, ngp_synthetic_cfg,
+                                           fused_mlp, hash_nbr, mse2psnr)
+    # Kernel F on one render chunk's own positions at both specs, F-MLP on
+    # the same chunk's own rows (kernel F's bf16 output and the SH rows).
+    for name, spec in specs.items():
+        hs["render chunk " + name] = {"fwd": check_hash_fwd(
+            torch, hash_nbr, "render chunk " + name, spec, chunk["pos"])}
+        hs["render chunk " + name]["fwd"]["launches"] = \
+            fused_launches["render_hash_fwd"]
+    mlp_chunk = check_fmlp_rows(torch, fused_mlp, "render chunk",
+                                chunk["ws"], chunk["x"], chunk["d"])
+    n_chunk = chunk["x"].shape[0]
+    print(f"render chunk: {n_chunk} samples, "
+          f"{int((chunk['pos'] == 0.5).all(dim=1).sum())} at the empty-slot "
+          f"position (0.5, 0.5, 0.5)", flush=True)
+    del chunk
     for pallas_mlp in (False, True):
         check_small_step(torch, Runner, ngp_synthetic_cfg, fused_mlp,
                          pallas_mlp)
 
     head = "step f8l4@2^19"
     others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")
+    fwd_others = others + ("render chunk f8l4@2^19", "render chunk f2l16@2^18")
+    fwd_keys = ("ms", "plain_ms", "bound_ms", "f32_ms")
     src = "jnerf_tpu_torch/csrc/fused_mlp.cu"
     no_lib = "no single PyTorch call computes it"
     kernels = [
@@ -675,20 +787,23 @@ def main() -> int:
             "hash_encode_fwd (kernel F)", "jnerf_tpu_torch/csrc/hash_encode.cu",
             "jnerf_tpu/ops/hash_nbr.py:261", launches["fwd"],
             hs[head]["fwd"],
-            f"one headline step's {N_SAMPLES} kept samples, f8l4@2^19",
+            f"one headline step's {N_SAMPLES} kept samples, f8l4@2^19, bf16 "
+            "output (the path's dtype; f32_ms: the f32 output)",
             max_abs_err=max(h["fwd"]["err"] for h in hs.values()),
             library=no_lib + " (a gather of bf16-rounded rows, each "
             "product rounded to bf16, summed in f32)",
             fused_path_launches=fused_launches["hash_fwd"],
-            **{k: {m: hs[k]["fwd"][m] for m in ("ms", "plain_ms", "bound_ms")}
-               for k in others}),
+            f32_ms=hs[head]["fwd"]["f32_ms"],
+            **{k: {m: hs[k]["fwd"][m] for m in fwd_keys
+                   + (("launches",) if k.startswith("render") else ())}
+               for k in fwd_others}),
         kernel_row(
             "hash_encode_bwd (kernel B)", "jnerf_tpu_torch/csrc/hash_encode.cu",
             "jnerf_tpu/ops/hash_nbr.py:381", launches["bwd"], hs[head]["bwd"],
             f"one headline step's {N_SAMPLES} kept samples, f8l4@2^19",
             also_replaces=["jnerf_tpu/ops/hash_nbr.py:430",
                            "jnerf_tpu/ops/hash_nbr.py:512"],
-            max_abs_err=max(h["bwd"]["err"] for h in hs.values()),
+            max_abs_err=max(hs[k]["bwd"]["err"] for k in (head,) + others),
             library="index_put_(accumulate=True) of the precomputed weighted "
             "contributions: the scatter alone",
             fused_path_launches=fused_launches["hash_bwd"],
@@ -698,9 +813,15 @@ def main() -> int:
         kernel_row(
             "fused_mlp_fwd (F-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:113",
             fused_launches["fwd"], dict(mlp["fwd"][N_SAMPLES], library_ms=None),
-            f"N={N_SAMPLES}", max_abs_err=mlp["fwd"]["err"], library=no_lib,
-            **{f"N={N_RENDER}": {m: mlp["fwd"][N_RENDER][m]
-                                 for m in ("ms", "plain_ms", "bound_ms")}}),
+            f"N={N_SAMPLES} random rows",
+            max_abs_err=max(mlp["fwd"]["err"], mlp_chunk["err"]),
+            library=no_lib,
+            **{f"N={N_RENDER} random rows": {
+                m: mlp["fwd"][N_RENDER][m]
+                for m in ("ms", "plain_ms", "bound_ms")},
+               f"render chunk N={n_chunk}": dict(
+                   {m: mlp_chunk[m] for m in ("ms", "plain_ms", "bound_ms")},
+                   launches=fused_launches["render_fwd"])}),
         kernel_row(
             "fused_mlp_bwd (B-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:123",
             fused_launches["bwd"], dict(mlp["bwd"][N_SAMPLES], library_ms=None),

@@ -19,27 +19,44 @@
 // exactly where a separate multiply and add would; the rounding that
 // matters is __float2bfloat16_rn at the re-quantization points.
 //
-// What bounds them: arithmetic.  A row costs 18.8 kFLOP forward and 54.4
-// kFLOP backward (recomputed forward, cotangents, weight gradients) against
-// 112 B (forward) or 240 B (backward) of row traffic, far above the card's
-// FLOP/byte balance.  F-MLP and D-MLP run on the CUDA cores: one thread
-// per row, f32 accumulators in registers, the bf16 feature rows read as
-// 16-byte vectors, the bf16-rounded weights (37 KB as f32) in shared
-// memory, read as warp-wide broadcasts.
+// What bounds them.  A row costs 18.8 kFLOP forward and 54.4 kFLOP
+// backward (recomputed forward, cotangents, weight gradients) against 112 B
+// (forward) or 240 B (backward) of row traffic.  On the tensor cores the
+// FLOPs are cheap (2^20 forward rows: 19.7 GFLOP, 20 us at the bf16 peak)
+// and the least time is the rows' bytes (117 MB, 35 us); what a kernel
+// spends beyond that goes to the ALU work around each mma: packing,
+// masking, and above all the test of every sum for an ambiguous rounding
+// and the re-sums it calls for (below).  F-MLP at 2^20 random rows took
+// 0.089 ms with neither (and then disagreed with its twin by 1.7e-2), 0.29
+// ms with both: about 3 re-sums a warp's 16-row tile, each a chain of up
+// to 64 dependent FMAs that one lane runs while the warp waits.
 //
-// B-MLP runs on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
-// accumulators; at the headline's 2^17 rows its 7.1 GFLOP would take the
-// card's bf16 peak 7 us, its 31 MB of rows 9 us).  Every operand is
-// bf16-exact already (weights rounded on load, activations and
-// cotangents re-quantized), so only the f32 sums differ from the CUDA-core
-// chain: the tensor core adds each k16 group in its own order.  Where that
-// could change a bf16 rounding or a ReLU mask, the sum is taken again in
-// the twin's order (fixup below), so B-MLP rounds as its twin does.  Each warp
-// takes 16 rows; the forward is recomputed layer by layer, each layer's
-// accumulators, masked and rounded, become the next product's operand
-// fragments in registers, and the cotangent products read the same bf16
-// weights through ldmatrix without .trans (W^T).  The rgb input stays two
-// partial products of one k16 step each, added after.
+// F-MLP and B-MLP run on the tensor cores (mma.sync m16n8k16, bf16
+// operands, f32 accumulators) and share one forward, mlp_forward.  Every
+// operand is bf16-exact already (weights rounded on load, activations
+// re-quantized), so only the f32 sums differ from the twin's k-by-k chain:
+// the tensor core adds each k16 group in its own order.  Where that could
+// change a bf16 rounding or a ReLU mask, the sum is taken again in the
+// twin's order (fixup below), so both kernels round as their twin does.
+// A warp takes 16 rows; each layer's accumulators, masked and rounded,
+// become the next product's operand fragments in registers.  The rgb
+// input stays two partial products of one k16 step each, added after.
+//
+// F-MLP keeps in shared memory only the rows its re-sums read (x, [db, d],
+// hb, r1b: 9.5 KB a warp, x and d twice) and the bf16 weights (22.5 KB a
+// block), so two blocks of 8 warps fit on an SM (one for B-MLP).  A
+// persistent grid of those blocks walks 16-row tiles, each warp on its
+// own: it loads its next tile's x and d rows (96 B a row) with cp.async
+// into a second buffer while it computes the current one, ends the
+// forward with rgb = r2b . V2 (V2 padded to [64, 8]: four k16 steps into
+// one n8 tile), and writes each row's [rgb, dout[0]] as one 16-byte
+// store.  Those two outputs stay f32 and nothing rounds them, so they need
+// no re-sum.  D-MLP runs on the CUDA cores: one thread per row, the
+// bf16-rounded weights in shared memory as f32, read as warp-wide
+// broadcasts.
+//
+// In B-MLP the cotangent products read the same bf16 weights through
+// ldmatrix without .trans (W^T).
 //
 // The backward's weight gradients are sums over all rows.  They are reduced
 // without atomics, in a fixed order: each block walks a fixed sequence of
@@ -62,16 +79,7 @@ constexpr int D_HID = 64;
 constexpr int D_GEO = 16;
 constexpr int SH_DIM = 16;
 constexpr int RGB_IN = D_GEO + SH_DIM;
-constexpr int kThreads = 128;  // one row per thread; a tile is kThreads rows
-
-// Weights in shared memory, f32 holding bf16-rounded values; V2 is padded
-// to [64, 4] with a zero column, as the TPU kernel pads it.
-constexpr int OFF_W0 = 0;
-constexpr int OFF_W1 = OFF_W0 + D_IN * D_HID;
-constexpr int OFF_V0 = OFF_W1 + D_HID * D_GEO;
-constexpr int OFF_V1 = OFF_V0 + RGB_IN * D_HID;
-constexpr int OFF_V2 = OFF_V1 + D_HID * D_HID;
-constexpr int N_WSMEM = OFF_V2 + D_HID * 4;
+constexpr int kThreads = 128;  // D-MLP: one row per thread
 
 // Weight gradients, flattened in the order dW0, dW1, dV0, dV1, dV2[64,3].
 constexpr int G_W0 = 0;
@@ -116,26 +124,27 @@ constexpr size_t BWD_SMEM = N_BWD * sizeof(__nv_bfloat16);  // 161,792 B
 constexpr int kNWTiles = 76;
 constexpr int kWTilesPerWarp = (kNWTiles + kBwdWarps - 1) / kBwdWarps;
 
+// ---- F-MLP (tensor cores).  The same bf16 weights at the same offsets,
+// then each warp's own rows: x and [db, d] twice (the tile being computed
+// and the next one, in flight), hb and r1b once.
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int F_X = 0;
+constexpr int F_IN = F_X + 2 * 16 * LX;
+constexpr int F_HB = F_IN + 2 * 16 * LIN;
+constexpr int F_R1 = F_HB + 16 * LH;
+constexpr int F_WARP = F_R1 + 16 * LH;  // 4864 bf16 = 9,728 B
+// After the rows, f32: kBandMag * max_k |W[k, col]| of W0, W1, V0, V1.
+constexpr int CM_W0 = 0;
+constexpr int CM_W1 = CM_W0 + D_HID;
+constexpr int CM_V0 = CM_W1 + D_GEO;
+constexpr int CM_V1 = CM_V0 + D_HID;
+constexpr int N_CM = CM_V1 + D_HID;
+constexpr size_t FWD_SMEM = (N_BW + kFwdWarps * F_WARP) * sizeof(__nv_bfloat16) +
+                            N_CM * sizeof(float);  // 101,184 B
+
 __device__ __forceinline__ float bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void load_weights(
-    float* sw, const float* __restrict__ w0, const float* __restrict__ w1,
-    const float* __restrict__ v0, const float* __restrict__ v1,
-    const float* __restrict__ v2) {
-  for (int i = threadIdx.x; i < D_IN * D_HID; i += blockDim.x)
-    sw[OFF_W0 + i] = bf(w0[i]);
-  for (int i = threadIdx.x; i < D_HID * D_GEO; i += blockDim.x)
-    sw[OFF_W1 + i] = bf(w1[i]);
-  for (int i = threadIdx.x; i < RGB_IN * D_HID; i += blockDim.x)
-    sw[OFF_V0 + i] = bf(v0[i]);
-  for (int i = threadIdx.x; i < D_HID * D_HID; i += blockDim.x)
-    sw[OFF_V1 + i] = bf(v1[i]);
-  for (int i = threadIdx.x; i < D_HID * 4; i += blockDim.x) {
-    const int j = i >> 2, c = i & 3;
-    sw[OFF_V2 + i] = c < 3 ? bf(v2[j * 3 + c]) : 0.0f;
-  }
 }
 
 // n bf16 values at p (16-byte aligned, n a multiple of 8) as f32; zeros
@@ -157,116 +166,10 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* __restrict__ p,
   }
 }
 
-// Row r of x [n, 32] and d [n, 16] (bf16); zeros past n.
+// Row r of x [n, 32] (bf16) as f32.
 __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ x,
-                                         const __nv_bfloat16* __restrict__ d,
-                                         int64_t r, bool live, float xin[D_IN],
-                                         float din[SH_DIM]) {
-  load_bf16<D_IN>(x + r * D_IN, live, xin);
-  if (din != nullptr) load_bf16<SH_DIM>(d + r * SH_DIM, live, din);
-}
-
-// a0 = x . W0 (f32), summed over k in order.
-__device__ __forceinline__ void layer0(const float* sw, const float xin[D_IN],
-                                       float a0[D_HID]) {
-#pragma unroll
-  for (int j = 0; j < D_HID; ++j) a0[j] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < D_IN; ++k) {
-#pragma unroll
-    for (int j = 0; j < D_HID; ++j)
-      a0[j] = fmaf(xin[k], sw[OFF_W0 + k * D_HID + j], a0[j]);
-  }
-}
-
-// dout = hb . W1 (f32).
-__device__ __forceinline__ void layer1(const float* sw, const float hb[D_HID],
-                                       float dout[D_GEO]) {
-#pragma unroll
-  for (int i = 0; i < D_GEO; ++i) dout[i] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < D_HID; ++k) {
-#pragma unroll
-    for (int i = 0; i < D_GEO; ++i)
-      dout[i] = fmaf(hb[k], sw[OFF_W1 + k * D_GEO + i], dout[i]);
-  }
-}
-
-// a1 = db . V0[:16] + d . V0[16:], each partial summed on its own.
-__device__ __forceinline__ void layer2(const float* sw, const float db[D_GEO],
-                                       const float din[SH_DIM],
-                                       float a1[D_HID]) {
-#pragma unroll
-  for (int j = 0; j < D_HID; ++j) a1[j] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < D_GEO; ++i) {
-#pragma unroll
-    for (int j = 0; j < D_HID; ++j)
-      a1[j] = fmaf(db[i], sw[OFF_V0 + i * D_HID + j], a1[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < D_HID; ++j) {
-    float q = 0.0f;
-#pragma unroll
-    for (int i = 0; i < SH_DIM; ++i)
-      q = fmaf(din[i], sw[OFF_V0 + (D_GEO + i) * D_HID + j], q);
-    a1[j] = a1[j] + q;
-  }
-}
-
-// a2 = r1b . V1.
-__device__ __forceinline__ void layer3(const float* sw, const float r1b[D_HID],
-                                       float a2[D_HID]) {
-#pragma unroll
-  for (int j = 0; j < D_HID; ++j) a2[j] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < D_HID; ++k) {
-#pragma unroll
-    for (int j = 0; j < D_HID; ++j)
-      a2[j] = fmaf(r1b[k], sw[OFF_V1 + k * D_HID + j], a2[j]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    mlp_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ d,
-                   const float* __restrict__ w0, const float* __restrict__ w1,
-                   const float* __restrict__ v0, const float* __restrict__ v1,
-                   const float* __restrict__ v2, float* __restrict__ out,
-                   int n) {
-  __shared__ float sw[N_WSMEM];
-  load_weights(sw, w0, w1, v0, v1, v2);
-  __syncthreads();
-  // One row per thread and no row loop: in a loop the compiler hoists the
-  // loop-invariant weight reads out of shared memory into (spilled)
-  // registers.
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  {
-    float xin[D_IN], din[SH_DIM], a[D_HID], h[D_HID], dout[D_GEO];
-    load_row(x, d, r, true, xin, din);
-    layer0(sw, xin, a);
-#pragma unroll
-    for (int j = 0; j < D_HID; ++j) a[j] = bf(fmaxf(a[j], 0.0f));
-    layer1(sw, a, dout);
-    float db[D_GEO];
-#pragma unroll
-    for (int i = 0; i < D_GEO; ++i) db[i] = bf(dout[i]);
-    layer2(sw, db, din, a);
-#pragma unroll
-    for (int j = 0; j < D_HID; ++j) a[j] = bf(fmaxf(a[j], 0.0f));
-    layer3(sw, a, h);
-    float rgb[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < D_HID; ++j) {
-      const float r2b = bf(fmaxf(h[j], 0.0f));
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        rgb[c] = fmaf(r2b, sw[OFF_V2 + j * 4 + c], rgb[c]);
-    }
-    reinterpret_cast<float4*>(out)[r] =
-        make_float4(rgb[0], rgb[1], rgb[2], dout[0]);
-  }
+                                         int64_t r, float xin[D_IN]) {
+  load_bf16<D_IN>(x + r * D_IN, true, xin);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -285,7 +188,7 @@ __global__ void __launch_bounds__(kThreads)
   if (r >= n) return;
   {
     float xin[D_IN], a0[D_HID];
-    load_row(x, nullptr, r, true, xin, nullptr);
+    load_row(x, r, xin);
 #pragma unroll
     for (int j = 0; j < D_HID; ++j) a0[j] = 0.0f;
 #pragma unroll
@@ -301,8 +204,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- B-MLP building blocks: ldmatrix and mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate).  Fragment layouts (PTX ISA, m16n8k16): lane = 4 gr + t;
+// ---- Tensor-core building blocks of F-MLP and B-MLP: ldmatrix and
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate).  Fragment layouts (PTX ISA, m16n8k16): lane = 4 gr + t;
 // A[16 x 16]: a0 = (gr, 2t..2t+1), a1 = (gr+8, 2t..), a2 = (gr, 8+2t..),
 // a3 = (gr+8, 8+2t..); B[16 x 8]: b0 = (k 2t..2t+1, n gr), b1 = (k 8+2t..,
 // n gr); C[16 x 8]: c0,c1 = (gr, 2t..2t+1), c2,c3 = (gr+8, 2t..2t+1).  So
@@ -390,46 +293,93 @@ __device__ __forceinline__ void apply_mask(float (&c)[8][4], uint32_t m) {
 }
 
 // The tensor core adds each k16 group in its own order and rounding, the
-// plain twin (and the CUDA-core chain) k by k with f32 FMAs; products of
-// bf16 values are exact, so the two sums are equal but for rare last
-// bits.  Those bits matter only where a value is about to be rounded to
-// bf16 or masked by its sign: a sum within kBandUlps f32 ulps of a bf16
-// rounding midpoint, or within kNearZero of zero, is summed again k by k
-// from the bf16 rows in shared memory, so B-MLP rounds and masks as its
-// twin does.  On an H100 about 1 sum in 10^6 disagreed before this.
-constexpr uint32_t kBandUlps = 16;
+// plain twin k by k with f32 FMAs; products of bf16 values are exact, so
+// the two sums are equal but for rare last bits.  Those bits matter only
+// where a value is about to be rounded to bf16 or masked by its sign: a
+// sum v within kBandRel * |v| + floor of the bf16 rounding midpoint of its
+// interval is summed again k by k from the bf16 rows in shared memory, so
+// F-MLP and B-MLP round and mask as their twin does.  The relative band
+// covers 16 to 32 f32 ulps of v; the floor covers sums that cancel, and
+// the sums near zero, where a sign could flip.  Before a ReLU only v >
+// -floor / kBandRel can matter (below, the mask and the value, 0, are
+// certain), and the test there takes v's sign.  On an H100 about 1 sum in
+// 10^6 disagreed without the re-sum.
+//
+// The floor: B-MLP keeps kBandAbs for every sum.  F-MLP lowers it where
+// the sum's own terms are small, as their rounding errors scale with
+// them: to kBandMag times the row's L1 norm times the column's largest
+// |w| (a bound on the sum of the row's |a_k w_k|) where that is below
+// kBandAbs.  On random O(1) rows it seldom is; a render chunk's rows carry
+// small hash features, and there F-MLP took 0.667 ms with kBandAbs for
+// every sum and 0.310 ms with this floor (2^20 rows, NVIDIA H100 80GB HBM3,
+// 700 W).  The test is 5 instructions a sum plus 2 for F-MLP's floor; an
+// earlier form with separate ulp, midpoint and zero tests (a subset of
+// this band) took F-MLP from 0.290 to 0.465 ms on 2^20 random rows.
+constexpr float kBandRel = 1.9073486e-6f;   // 2^-19
 constexpr float kBandAbs = 4.76837158e-7f;  // 2^-21
-constexpr float kNearZero = 1e-6f;
+constexpr float kBandMag = 2.38418579e-7f;  // 2^-22
 
-__device__ __forceinline__ bool ambiguous(float v) {
-  const float a = fabsf(v);
-  const uint32_t u = __float_as_uint(a);
-  const float mid = __uint_as_float((u & 0xFFFF0000u) | 0x8000u);
-  return a < kNearZero || (u & 0xFFFFu) - (0x8000u - kBandUlps) <= 2u * kBandUlps ||
-         fabsf(a - mid) < kBandAbs;
+template <bool RELU>
+__device__ __forceinline__ bool ambiguous(float v, float floor) {
+  const float a = RELU ? v : fabsf(v);
+  const float mid = __uint_as_float((__float_as_uint(a) & 0xFFFF0000u) | 0x8000u);
+  return fabsf(a - mid) < fmaf(a, kBandRel, floor);
 }
 
-// sum over k < K, in k order, of a[k] * w[k * ws], f32 FMAs.
+// B-MLP's floor.
+struct AbsFloor {
+  __device__ float operator()(int, int) const { return kBandAbs; }
+};
+
+// F-MLP's floor for entry e of C tile j: row[h] for row gr + 8h times
+// col[j][b] for column 8j + 2t + b (kBandMag folded into col), at most
+// kBandAbs.
+template <int NT>
+struct MagFloor {
+  float row[2], col[NT][2];
+  __device__ float operator()(int j, int e) const {
+    return fminf(kBandAbs, row[e >> 1] * col[j][e & 1]);
+  }
+};
+
+// sum over k < K, in k order, of a[k] * w[k * ws], f32 FMAs; a (a row in
+// shared memory, 16-byte aligned when K is a multiple of 8) is read 8
+// values a load.
 template <int K>
 __device__ __forceinline__ float seq_dot(const __nv_bfloat16* a,
                                          const __nv_bfloat16* w, int ws) {
   float s = 0.0f;
+  if constexpr (K % 8 == 0) {
 #pragma unroll
-  for (int k = 0; k < K; ++k)
-    s = fmaf(__bfloat162float(a[k]), __bfloat162float(w[k * ws]), s);
+    for (int k8 = 0; k8 < K; k8 += 8) {
+      const uint4 av = *reinterpret_cast<const uint4*>(a + k8);
+      const __nv_bfloat162* ah = reinterpret_cast<const __nv_bfloat162*>(&av);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 af = __bfloat1622float2(ah[u]);
+        s = fmaf(af.x, __bfloat162float(w[(k8 + 2 * u) * ws]), s);
+        s = fmaf(af.y, __bfloat162float(w[(k8 + 2 * u + 1) * ws]), s);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      s = fmaf(__bfloat162float(a[k]), __bfloat162float(w[k * ws]), s);
+  }
   return s;
 }
 
-// Bit 4j+e set = entry c[j][e] is ambiguous (and live).
-template <int NT>
+// Bit 4j+e set = entry c[j][e] is ambiguous (and live); RELU before a ReLU.
+template <int NT, bool RELU = false, class Floor = AbsFloor>
 __device__ __forceinline__ uint32_t ambiguous_bits(const float (&c)[NT][4],
-                                                   uint32_t live) {
+                                                   uint32_t live,
+                                                   const Floor& fl = Floor()) {
   uint32_t f = 0;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (ambiguous(c[j][e])) f |= 1u << (4 * j + e);
+      if (ambiguous<RELU>(c[j][e], fl(j, e))) f |= 1u << (4 * j + e);
   return f & live;
 }
 
@@ -447,16 +397,19 @@ __device__ __forceinline__ void set_entry(float (&c)[NT][4], int i, float v) {
 // sum_k act[k] * w[col * cs + k * ks]; entries whose bit in `live` is clear
 // are masked to 0 after and are skipped.  With ADD0, add0_lo / add0_hi
 // (rows gr and gr + 8) join column 0 after the sum, as g[:, 3] joins
-// d_dout[:, 0].  A lane loops over its own flagged entries only.
-template <int NT, int K, bool ADD0 = false>
+// d_dout[:, 0].  RELU and fl choose the test (ambiguous_bits).  A lane
+// loops over its own flagged entries only.
+template <int NT, int K, bool ADD0 = false, bool RELU = false,
+          class Floor = AbsFloor>
 __device__ __forceinline__ void fixup(float (&c)[NT][4],
                                       const __nv_bfloat16* act, int lda,
                                       const __nv_bfloat16* w, int cs, int ks,
                                       int lane, uint32_t live = 0xffffffffu,
                                       float add0_lo = 0.0f,
-                                      float add0_hi = 0.0f) {
+                                      float add0_hi = 0.0f,
+                                      const Floor& fl = Floor()) {
   const int gr = lane >> 2, t = lane & 3;
-  uint32_t flags = ambiguous_bits(c, live);
+  uint32_t flags = ambiguous_bits<NT, RELU>(c, live, fl);
   while (flags) {
     const int i = __ffs(flags) - 1;
     flags &= flags - 1;
@@ -468,9 +421,10 @@ __device__ __forceinline__ void fixup(float (&c)[NT][4],
 }
 
 // The C fragments of a 16 x 16KT product, rounded to bf16, as the A
-// fragments of the next product; the same bf16 values go to the warp's 16
-// tile rows at s (row stride ld) for the weight gradients.
-template <int KT>
+// fragments of the next product; with STORE the same bf16 values go to the
+// warp's 16 tile rows at s (row stride ld), for the re-sums of the next
+// product and for the weight gradients.
+template <int KT, bool STORE = true>
 __device__ __forceinline__ void to_a(uint32_t (&a)[KT][4],
                                      const float (&c)[2 * KT][4],
                                      __nv_bfloat16* s, int ld, int lane) {
@@ -482,9 +436,11 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[KT][4],
       const int j = 2 * kk + h;
       a[kk][2 * h] = pack_bf16(c[j][0], c[j][1]);
       a[kk][2 * h + 1] = pack_bf16(c[j][2], c[j][3]);
-      *reinterpret_cast<uint32_t*>(s + gr * ld + j * 8 + 2 * t) = a[kk][2 * h];
-      *reinterpret_cast<uint32_t*>(s + (gr + 8) * ld + j * 8 + 2 * t) =
-          a[kk][2 * h + 1];
+      if (STORE) {
+        *reinterpret_cast<uint32_t*>(s + gr * ld + j * 8 + 2 * t) = a[kk][2 * h];
+        *reinterpret_cast<uint32_t*>(s + (gr + 8) * ld + j * 8 + 2 * t) =
+            a[kk][2 * h + 1];
+      }
     }
 }
 
@@ -547,6 +503,241 @@ __device__ __forceinline__ void load_weights_bf16(
   for (int i = threadIdx.x; i < D_HID * LV2; i += blockDim.x) {
     const int j = i / LV2, c = i % LV2;
     s[B_V2 + i] = __float2bfloat16_rn(c < 3 ? v2[j * 3 + c] : 0.0f);
+  }
+}
+
+// The warp's 16 rows in shared memory (row strides LX, LIN, LH, LH, LH):
+// x and d (in[:, 16:]) are loaded by the caller; hb, bf16(dout) (in[:, :16])
+// and r1b are written here for the re-sums, r2b (B-MLP's only) for the
+// weight gradients.
+struct WarpRows {
+  __nv_bfloat16 *x, *in, *hb, *r1, *r2;
+};
+
+// What the forward leaves in registers: the ReLU masks of a0, a1 and a2
+// (bit 4j+e of the C fragments), r2b = bf16(relu(a2)) as A fragments, and
+// dout in f32 (C fragments).
+struct Fwd {
+  uint32_t m0, m1, m2;
+  uint32_t ar[4][4];
+  float dout[2][4];
+};
+
+// kBandMag * max_k |bf16(w[k, col])| of a [K, ncols] f32 weight.
+__device__ __forceinline__ float col_max(const float* __restrict__ w, int K,
+                                         int ncols, int col) {
+  float m = 0.0f;
+  for (int k = 0; k < K; ++k) m = fmaxf(m, fabsf(bf(w[k * ncols + col])));
+  return kBandMag * m;
+}
+
+// The floor of the band for a product with A operand a [16 x 16KT]: B-MLP's
+// constant; F-MLP's MagFloor from the L1 norms of the warp's rows gr and
+// gr + 8 of a, taken on the tensor core as |a| . ones (every column of the
+// C fragment holds its row's sum), and the column maxima of the weight at
+// cm + off.
+template <bool BMLP, int NT, int KT>
+__device__ __forceinline__ auto floor_of(const uint32_t (&a)[KT][4],
+                                         const float* cm, int off, int lane) {
+  if constexpr (BMLP) {
+    return AbsFloor{};
+  } else {
+    constexpr uint32_t kOnes = 0x3F803F80u;  // bf16 1.0, twice
+    MagFloor<NT> f;
+    float l1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t aa[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) aa[r] = a[kk][r] & 0x7FFF7FFFu;
+      mma(l1, aa, kOnes, kOnes);
+    }
+    f.row[0] = l1[0];
+    f.row[1] = l1[2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 c =
+          *reinterpret_cast<const float2*>(cm + off + j * 8 + 2 * (lane & 3));
+      f.col[j][0] = c.x;
+      f.col[j][1] = c.y;
+    }
+    return f;
+  }
+}
+
+// The forward of the warp's 16 rows, at the twin's quantization points:
+// a0 = x . W0; hb = bf16(relu(a0)); dout = hb . W1; a1 = bf16(dout) .
+// V0[:16] + d . V0[16:]; r1b = bf16(relu(a1)); a2 = r1b . V1; r2b =
+// bf16(relu(a2)).  Each sum that is about to be rounded or masked is
+// re-summed where ambiguous.  The weights sit at sm (offsets B_*).  BMLP:
+// the forward that B-MLP recomputes (r2b also to w.r2, the floor kBandAbs);
+// else F-MLP's (the floor from the column maxima at cm, offsets CM_*).
+template <bool BMLP>
+__device__ __forceinline__ void mlp_forward(const __nv_bfloat16* sm,
+                                            const float* cm, const WarpRows& w,
+                                            int lane, Fwd& f) {
+  const uint32_t s0 = saddr(sm);
+  const int gr = lane >> 2, t = lane & 3, q = lane >> 3, r8 = lane & 7;
+  float acc[8][4];
+  uint32_t ax[2][4];
+  load_a(ax[0], saddr(w.x), LX, lane);
+  load_a(ax[1], saddr(w.x + 16), LX, lane);
+  zero(acc);
+  mm_w<2, 8>(acc, ax, s0 + 2 * B_W0, LW0, lane);
+  fixup<8, D_IN, false, true>(acc, w.x, LX, sm + B_W0, 1, LW0, lane,
+                              0xffffffffu, 0.0f, 0.0f,
+                              floor_of<BMLP, 8>(ax, cm, CM_W0, lane));
+  f.m0 = relu_mask(acc);
+  uint32_t ah[4][4];
+  to_a<4>(ah, acc, w.hb, LH, lane);
+  __syncwarp();
+  // dout = hb . W1 (f32); db = bf16(dout).
+  zero(f.dout);
+  mm_w<4, 2>(f.dout, ah, s0 + 2 * B_W1, LW1, lane);
+  fixup<2, D_HID>(f.dout, w.hb, LH, sm + B_W1, 1, LW1, lane, 0xffffffffu,
+                  0.0f, 0.0f, floor_of<BMLP, 2>(ah, cm, CM_W1, lane));
+  uint32_t adb[1][4], ad[4];
+  to_a<1>(adb, f.dout, w.in, LIN, lane);
+  __syncwarp();
+  load_a(ad, saddr(w.in + D_GEO), LIN, lane);
+  const uint32_t ain[2][4] = {{adb[0][0], adb[0][1], adb[0][2], adb[0][3]},
+                              {ad[0], ad[1], ad[2], ad[3]}};
+  // a1 = db . V0[:16] + d . V0[16:], each partial on its own, then added.
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    uint32_t b[4], bd[4];
+    ldsm4t(b, s0 + 2 * (B_V0 + ((q & 1) * 8 + r8) * LV0 + (j + (q >> 1)) * 8));
+    ldsm4t(bd, s0 + 2 * (B_V0 + (D_GEO + (q & 1) * 8 + r8) * LV0 +
+                         (j + (q >> 1)) * 8));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p[4] = {0.f, 0.f, 0.f, 0.f}, pd[4] = {0.f, 0.f, 0.f, 0.f};
+      mma(p, adb[0], b[2 * h], b[2 * h + 1]);
+      mma(pd, ad, bd[2 * h], bd[2 * h + 1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j + h][e] = p[e] + pd[e];
+    }
+  }
+  for (uint32_t fl = ambiguous_bits<8, true>(
+           acc, 0xffffffffu, floor_of<BMLP, 8>(ain, cm, CM_V0, lane));
+       fl; fl &= fl - 1) {
+    const int i = __ffs(fl) - 1;
+    const __nv_bfloat16* in = w.in + (gr + ((i >> 1) & 1) * 8) * LIN;
+    const __nv_bfloat16* v0c = sm + B_V0 + (i >> 2) * 8 + 2 * t + (i & 1);
+    set_entry(acc, i, seq_dot<D_GEO>(in, v0c, LV0) +
+                          seq_dot<SH_DIM>(in + D_GEO, v0c + D_GEO * LV0, LV0));
+  }
+  f.m1 = relu_mask(acc);
+  to_a<4>(f.ar, acc, w.r1, LH, lane);
+  __syncwarp();
+  // a2 = r1b . V1; r2b = bf16(relu(a2)).
+  zero(acc);
+  mm_w<4, 8>(acc, f.ar, s0 + 2 * B_V1, LV1, lane);
+  fixup<8, D_HID, false, true>(acc, w.r1, LH, sm + B_V1, 1, LV1, lane,
+                               0xffffffffu, 0.0f, 0.0f,
+                               floor_of<BMLP, 8>(f.ar, cm, CM_V1, lane));
+  f.m2 = relu_mask(acc);
+  to_a<4, BMLP>(f.ar, acc, w.r2, LH, lane);
+}
+
+// 16 bytes from global src to shared dst, or 16 zero bytes when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copy of rows r0 .. r0+15 of x and d into a warp's buffers: x
+// to xs (row stride LX), d to in[:, 16:] (row stride LIN); zeros past n.
+__device__ __forceinline__ void load_tile_async(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ d,
+    int64_t r0, int n, __nv_bfloat16* xs, __nv_bfloat16* in, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = lane + 32 * h, row = c >> 2, part = c & 3;
+    const bool live = r0 + row < n;
+    cp_async16(saddr(xs + row * LX + part * 8),
+               x + (live ? (r0 + row) * D_IN + part * 8 : 0), live);
+  }
+  const int row = lane >> 1, part = lane & 1;
+  const bool live = r0 + row < n;
+  cp_async16(saddr(in + row * LIN + D_GEO + part * 8),
+             d + (live ? (r0 + row) * SH_DIM + part * 8 : 0), live);
+}
+
+// F-MLP: a persistent grid; warp w of block b takes the 16-row tiles
+// b * kFwdWarps + w, then every gridDim.x * kFwdWarps-th after it.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    mlp_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ d,
+                   const float* __restrict__ w0, const float* __restrict__ w1,
+                   const float* __restrict__ v0, const float* __restrict__ v1,
+                   const float* __restrict__ v2, float* __restrict__ out,
+                   int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t = lane & 3;
+  __nv_bfloat16* rows = sm + N_BW + warp * F_WARP;
+  const int64_t n_tiles = ((int64_t)n + 15) / 16;
+  const int64_t stride = (int64_t)gridDim.x * kFwdWarps;
+  int64_t tile = (int64_t)blockIdx.x * kFwdWarps + warp;
+  if (tile < n_tiles)
+    load_tile_async(x, d, tile * 16, n, rows + F_X, rows + F_IN, lane);
+  cp_async_commit();
+  load_weights_bf16(sm, w0, w1, v0, v1, v2);
+  float* cm = reinterpret_cast<float*>(sm + N_BW + kFwdWarps * F_WARP);
+  for (int i = threadIdx.x; i < N_CM; i += blockDim.x)
+    cm[i] = i < CM_W1   ? col_max(w0, D_IN, D_HID, i - CM_W0)
+            : i < CM_V0 ? col_max(w1, D_HID, D_GEO, i - CM_W1)
+            : i < CM_V1 ? col_max(v0, RGB_IN, D_HID, i - CM_V0)
+                        : col_max(v1, D_HID, D_HID, i - CM_V1);
+  __syncthreads();
+  const uint32_t s0 = saddr(sm);
+  for (int b = 0; tile < n_tiles; tile += stride, b ^= 1) {
+    const int64_t next = tile + stride;
+    if (next < n_tiles)
+      load_tile_async(x, d, next * 16, n, rows + F_X + (b ^ 1) * 16 * LX,
+                      rows + F_IN + (b ^ 1) * 16 * LIN, lane);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's rows have landed
+    __syncwarp();
+    Fwd fw;
+    mlp_forward<false>(sm, cm,
+                       {rows + F_X + b * 16 * LX, rows + F_IN + b * 16 * LIN,
+                        rows + F_HB, rows + F_R1, nullptr},
+                       lane, fw);
+    // rgb = r2b . V2: V2 [64, 8] (3 columns used), four k16 steps.
+    float rgb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+      uint32_t bv[4];
+      ldsm4t(bv, s0 + 2 * (B_V2 + (kh * 32 + lane) * LV2));
+      mma(rgb, fw.ar[2 * kh], bv[0], bv[1]);
+      mma(rgb, fw.ar[2 * kh + 1], bv[2], bv[3]);
+    }
+    // Lane t = 0 holds rgb columns 0-1 and dout column 0 of rows gr and
+    // gr + 8, lane t = 1 rgb column 2: one 16-byte store a row.
+    const float c2lo = __shfl_down_sync(0xffffffffu, rgb[0], 1);
+    const float c2hi = __shfl_down_sync(0xffffffffu, rgb[2], 1);
+    const int64_t r0 = tile * 16;
+    float4* o = reinterpret_cast<float4*>(out);
+    if (t == 0 && r0 + gr < n)
+      o[r0 + gr] = make_float4(rgb[0], rgb[1], c2lo, fw.dout[0][0]);
+    if (t == 0 && r0 + gr + 8 < n)
+      o[r0 + gr + 8] = make_float4(rgb[2], rgb[3], c2hi, fw.dout[0][2]);
+    __syncwarp();  // done with buffer b: the next tile but one loads into it
   }
 }
 
@@ -619,60 +810,16 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const float g3hi = __shfl_sync(0xffffffffu, gv.w, gr + 8);  // row gr+8
     __syncwarp();
 
-    // ---- forward, recomputed.  a0 = x . W0; hb = bf16(relu(a0)).
+    // ---- forward, recomputed; r2b to the tile only.
+    Fwd fw;
+    mlp_forward<true>(sm, nullptr,
+                      {sm + R_X + wr * LX, sm + R_IN + wr * LIN,
+                       sm + R_HB + wr * LH, sm + R_R1 + wr * LH,
+                       sm + R_R2 + wr * LH},
+                      lane, fw);
+    const uint32_t m0 = fw.m0, m1 = fw.m1, m2 = fw.m2;
     float acc[8][4];
-    uint32_t ax[2][4];
-    load_a(ax[0], s0 + 2 * (R_X + wr * LX), LX, lane);
-    load_a(ax[1], s0 + 2 * (R_X + wr * LX + 16), LX, lane);
-    zero(acc);
-    mm_w<2, 8>(acc, ax, s0 + 2 * B_W0, LW0, lane);
-    fixup<8, D_IN>(acc, sm + R_X + wr * LX, LX, sm + B_W0, 1, LW0, lane);
-    const uint32_t m0 = relu_mask(acc);
-    uint32_t ah[4][4];
-    to_a<4>(ah, acc, sm + R_HB + wr * LH, LH, lane);
-    __syncwarp();
-    // dout = hb . W1 (f32); db = bf16(dout).
-    float dout[2][4];
-    zero(dout);
-    mm_w<4, 2>(dout, ah, s0 + 2 * B_W1, LW1, lane);
-    fixup<2, D_HID>(dout, sm + R_HB + wr * LH, LH, sm + B_W1, 1, LW1, lane);
-    uint32_t adb[1][4], ad[4];
-    to_a<1>(adb, dout, sm + R_IN + wr * LIN, LIN, lane);
-    __syncwarp();
-    load_a(ad, s0 + 2 * (R_IN + wr * LIN + D_GEO), LIN, lane);
-    // a1 = db . V0[:16] + d . V0[16:], each partial on its own, then added.
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      uint32_t b[4], bd[4];
-      ldsm4t(b, s0 + 2 * (B_V0 + ((q & 1) * 8 + r8) * LV0 + (j + (q >> 1)) * 8));
-      ldsm4t(bd, s0 + 2 * (B_V0 + (D_GEO + (q & 1) * 8 + r8) * LV0 +
-                           (j + (q >> 1)) * 8));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float p[4] = {0.f, 0.f, 0.f, 0.f}, pd[4] = {0.f, 0.f, 0.f, 0.f};
-        mma(p, adb[0], b[2 * h], b[2 * h + 1]);
-        mma(pd, ad, bd[2 * h], bd[2 * h + 1]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j + h][e] = p[e] + pd[e];
-      }
-    }
-    for (uint32_t f = ambiguous_bits(acc, 0xffffffffu); f; f &= f - 1) {
-      const int i = __ffs(f) - 1;
-      const __nv_bfloat16* in = sm + R_IN + (wr + gr + ((i >> 1) & 1) * 8) * LIN;
-      const __nv_bfloat16* v0c = sm + B_V0 + (i >> 2) * 8 + 2 * t + (i & 1);
-      set_entry(acc, i, seq_dot<D_GEO>(in, v0c, LV0) +
-                            seq_dot<SH_DIM>(in + D_GEO, v0c + D_GEO * LV0, LV0));
-    }
-    const uint32_t m1 = relu_mask(acc);
-    uint32_t ar[4][4];
-    to_a<4>(ar, acc, sm + R_R1 + wr * LH, LH, lane);
-    __syncwarp();
-    // a2 = r1b . V1; r2b = bf16(relu(a2)) (to the tile only).
-    zero(acc);
-    mm_w<4, 8>(acc, ar, s0 + 2 * B_V1, LV1, lane);
-    fixup<8, D_HID>(acc, sm + R_R1 + wr * LH, LH, sm + B_V1, 1, LV1, lane);
-    const uint32_t m2 = relu_mask(acc);
-    to_a<4>(ar, acc, sm + R_R2 + wr * LH, LH, lane);
+    uint32_t ah[4][4], ar[4][4], adb[1][4];
 
     // ---- backward.  dr2 = bf16((g4 . V2^T) * (a2 > 0)), k = 3 of 16.
     uint32_t ag[4];
@@ -819,7 +966,21 @@ extern "C" int fused_mlp_fwd(const void* x, const void* d, const void* w0,
                              const void* v2, void* out, int n, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  mlp_fwd_kernel<<<row_tiles(n), kThreads, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_fwd_kernel,
+                                                      kFwdThreads, FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  // As many blocks as fit on the card at once, or fewer when the rows'
+  // 16-row tiles run out.
+  const int64_t need = (((int64_t)n + 15) / 16 + kFwdWarps - 1) / kFwdWarps;
+  const int64_t fit = (int64_t)(sm_count() > 0 ? sm_count() : 1) *
+                      (per_sm > 0 ? per_sm : 1);
+  mlp_fwd_kernel<<<(int)(need < fit ? need : fit), kFwdThreads, FWD_SMEM,
+                   (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)d, (const float*)w0,
       (const float*)w1, (const float*)v0, (const float*)v1, (const float*)v2,
       (float*)out, n);

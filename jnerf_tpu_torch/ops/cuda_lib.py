@@ -63,9 +63,9 @@ def build(name: str) -> Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# hash_encode_fwd(pos, table, out, e0_out, n, L, F, scales, mults, sizes,
-#                 masks, offsets, corner_offs, stream)
-_HASH_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
+# hash_encode_fwd(pos, table, out, e0_out, n, L, F, out_bf16, scales, mults,
+#                 sizes, masks, offsets, corner_offs, stream)
+_HASH_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
 # hash_encode_bwd(pos, g, grad, n, L, F, scales, mults, sizes, masks,
 #                 offsets, corner_offs, stream)
 _HASH_BWD_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]

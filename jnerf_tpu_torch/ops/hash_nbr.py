@@ -14,9 +14,10 @@ from the master table, so that layout and its adjoint have no
 counterpart.
 
 Two CUDA kernels (`jnerf_tpu_torch/csrc/hash_encode.cu`) compute these:
-`encode_fwd` (kernel F) and `grad_table` (kernel B; 16-byte vector
-reductions, a warp's contributions summed per entry before they reach
-L2).  Each wrapper runs its plain PyTorch twin (`hash_encode_plain`,
+`encode_fwd` (kernel F; 16-byte row loads, the output written in the
+encoder's compute dtype, bf16 or f32, as 16-byte stores) and `grad_table`
+(kernel B; 16-byte vector reductions, a warp's contributions summed per
+entry before they reach L2).  Each wrapper runs its plain PyTorch twin (`hash_encode_plain`,
 `grad_table_plain`) only when given CPU tensors; for CUDA tensors it
 launches the kernel or raises.  Each wrapper counts its launches in
 ``.launches``.
@@ -160,16 +161,21 @@ def _const_ptrs(consts: LevelConsts):
 
 
 def encode_fwd(spec: HashGridSpec, table: torch.Tensor, pos: torch.Tensor,
-               e0_out: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel F: [N, 3] positions -> [N, F*L] f32 feature-major encoding.
+               e0_out: torch.Tensor | None = None,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Kernel F: [N, 3] positions -> [N, F*L] feature-major encoding in
+    ``out_dtype`` (float32, or bfloat16: each f32 sum rounded once, the
+    values of the f32 output cast to bf16).
 
     ``e0_out`` ([N, L] int32), if given, receives each (sample, level)'s
     base entry, so a check can count index disagreements."""
     if pos.device.type == "cpu":
-        return hash_encode_plain(spec, table, pos, e0_out)
+        return hash_encode_plain(spec, table, pos, e0_out).to(out_dtype)
     L, F = spec.n_levels, spec.n_features_per_level
     n = pos.shape[0]
     _require_cuda_inputs(spec, pos, table=(table, (spec.n_entries, F)))
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel F writes float32 or bfloat16, not {out_dtype}")
     if e0_out is not None and (e0_out.dtype != torch.int32
                                or tuple(e0_out.shape) != (n, L)
                                or e0_out.device != pos.device
@@ -178,13 +184,15 @@ def encode_fwd(spec: HashGridSpec, table: torch.Tensor, pos: torch.Tensor,
     from .cuda_lib import check, hash_encode_lib
 
     lib = hash_encode_lib()
-    out = torch.empty((n, F * L), dtype=torch.float32, device=pos.device)
+    if table.data_ptr() % 16:  # the kernel reads rows as 16-byte vectors
+        table = table.clone()
+    out = torch.empty((n, F * L), dtype=out_dtype, device=pos.device)
     consts = level_consts(spec)
     with torch.cuda.device(pos.device):
         status = lib.hash_encode_fwd(
             pos.data_ptr(), table.data_ptr(), out.data_ptr(),
             None if e0_out is None else e0_out.data_ptr(),
-            n, L, F, *_const_ptrs(consts),
+            n, L, F, int(out_dtype == torch.bfloat16), *_const_ptrs(consts),
             torch.cuda.current_stream(pos.device).cuda_stream)
     check(status, "hash_encode_fwd")
     encode_fwd.launches += 1
@@ -227,27 +235,25 @@ class HashEncode(torch.autograd.Function):
     (as in the reference, `grid_encode.py:190`)."""
 
     @staticmethod
-    def forward(ctx, table, pos, spec):
+    def forward(ctx, table, pos, spec, out_dtype):
         ctx.spec = spec
         ctx.save_for_backward(pos)
-        return encode_fwd(spec, table, pos)
+        return encode_fwd(spec, table, pos, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         (pos,) = ctx.saved_tensors
-        return grad_table(ctx.spec, pos, g.float().contiguous()), None, None
+        return (grad_table(ctx.spec, pos, g.float().contiguous()), None, None,
+                None)
 
 
 def hash_encode_nbr(spec: HashGridSpec, table: torch.Tensor,
                     pos: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """[N, 3] warped positions in [0, 1] -> [N, F*L] feature-major
-    encoding, differentiable in ``table``; cast to ``compute_dtype`` if
-    given."""
+    encoding, differentiable in ``table``, in ``compute_dtype`` (float32
+    when None).  Kernel F writes float32 or bfloat16 itself."""
     pos = pos.detach().contiguous()
+    out_dtype = compute_dtype or torch.float32
     if torch.is_grad_enabled() and table.requires_grad:
-        out = HashEncode.apply(table, pos, spec)
-    else:
-        out = encode_fwd(spec, table.detach(), pos)
-    if compute_dtype is not None:
-        out = out.to(compute_dtype)
-    return out
+        return HashEncode.apply(table, pos, spec, out_dtype)
+    return encode_fwd(spec, table.detach(), pos, out_dtype=out_dtype)

@@ -120,6 +120,32 @@ def test_grad_table_clustered_matches_plain(dev, name, n):
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("samples", ["uniform", "clustered"])
+@pytest.mark.parametrize("name", list(BIG_SPECS))
+def test_encode_bf16_is_f32_rounded(dev, name, samples):
+    """Kernel F writing bf16 (the encoder's compute dtype on the path)
+    gives, bit for bit, its f32 output rounded to bf16; the f32 output
+    matches the twin (0 base-entry mismatches, atol 1e-3 as above), on
+    uniform samples and on runs along rays, at a ragged N."""
+    spec = HashGridSpec(**BIG_SPECS[name])
+    n = 100_003
+    gen = torch.Generator(dev).manual_seed(2)
+    pos = (torch.rand((n, 3), generator=gen, device=dev)
+           if samples == "uniform" else _clustered(n, dev))
+    table = torch.randn((spec.n_entries, spec.n_features_per_level),
+                        generator=gen, device=dev) * 0.1
+    e0k = torch.zeros((n, spec.n_levels), dtype=torch.int32, device=dev)
+    e0p = torch.zeros_like(e0k)
+    f32 = hash_nbr.encode_fwd(spec, table, pos, e0_out=e0k)
+    b16 = hash_nbr.encode_fwd(spec, table, pos, out_dtype=torch.bfloat16)
+    ref = hash_nbr.hash_encode_plain(spec, table, pos, e0_out=e0p)
+    torch.cuda.synchronize()
+    assert b16.dtype == torch.bfloat16 and b16.shape == f32.shape
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+    assert int((e0k != e0p).sum()) == 0
+    assert float((f32 - ref).abs().max()) <= 1e-3
+
+
 def test_autograd_goes_through_both_kernels(dev):
     """The autograd.Function launches kernel F forward and kernel B
     backward, and its table gradient matches the twin's on the upstream
@@ -198,6 +224,22 @@ def test_fused_mlp_kernels_match_plain(dev, n):
     assert den.shape == (n, 1)
     assert float((den - rden).abs().max()) <= 1e-5
     assert torch.equal(out_bf, out)
+
+
+@pytest.mark.parametrize("n", [8192, 5000, 70000, 100_003, 1 << 20])
+def test_fmlp_matches_plain_and_repeats(dev, n):
+    """F-MLP on the tensor cores against its twin at the training and
+    render shapes and at ragged counts (a part-empty last 16-row tile):
+    atol 1e-5, as above, and two runs equal bit for bit."""
+    ws, x, d, _ = _mlp_inputs(dev, n, seed=3)
+    x, d = x.bfloat16(), d.bfloat16()
+    out = fused_mlp.fused_mlp_fwd(ws, x, d)
+    out2 = fused_mlp.fused_mlp_fwd(ws, x, d)
+    ref = fused_mlp.fused_ngp_mlp_plain(ws, x, d)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 4)
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert torch.equal(out, out2)
 
 
 def test_fused_autograd_goes_through_both_kernels(dev):

@@ -91,6 +91,28 @@ def test_forward_matches_jax(name):
     np.testing.assert_allclose(n(out), ref, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("name", list(SPECS))
+def test_forward_bf16_matches_jax(name):
+    """The encoder in the network's compute dtype, bf16: kernel F writes
+    bf16 itself on the card, and on the CPU encode_fwd's bf16 output is the
+    f32 twin's rounded.  It equals the JAX encoder's bf16 output
+    (``compute_dtype=jnp.bfloat16``, an f32 sum cast) at the f32 test's
+    atol 1e-6."""
+    ts, js = HashGridSpec(**_kw(name)), JaxSpec(**_kw(name))
+    table, pos, _ = _inputs(ts)
+    direct = tnbr.encode_fwd(ts, t(table), t(pos), out_dtype=torch.bfloat16)
+    f32 = tnbr.encode_fwd(ts, t(table), t(pos))
+    assert direct.dtype == torch.bfloat16
+    assert torch.equal(direct, f32.to(torch.bfloat16))
+    out = tnbr.hash_encode_nbr(ts, t(table), t(pos), torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, direct)
+    ref = jnbr.hash_encode_nbr(js, jnp.asarray(table), jnp.asarray(pos),
+                               jnp.bfloat16)
+    assert ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(n(out.float()), n(ref.astype(jnp.float32)),
+                               rtol=0, atol=1e-6)
+
+
 def _clustered(n_samples=1024, n_rays=8, seed=3):
     """Samples as a training step feeds kernel B: runs of consecutive
     samples along a few rays (128 each, sqrt(3)/1024 apart, as the march

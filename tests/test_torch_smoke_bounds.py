@@ -38,6 +38,30 @@ def test_kernel_f_bytes(L, F, rows):
     assert w["bound_by"] == "bytes"
 
 
+@pytest.mark.parametrize("L,F,rows", [(4, 8, 1_000_000), (16, 2, 2_500_000)])
+def test_kernel_f_bf16_bytes(L, F, rows):
+    """Kernel F as the path runs it, writing bf16: 12 + 2*F*L bytes a
+    sample, plus 4F bytes for each table row it reads; the f32 output
+    counts 2*F*L bytes a sample more."""
+    w = chip_smoke.hash_fwd_work(N, L, F, rows, out_bytes=2)
+    assert w["bytes"] == (12 + 2 * F * L) * N + 4 * F * rows
+    f32 = chip_smoke.hash_fwd_work(N, L, F, rows)
+    assert f32["bytes"] - w["bytes"] == 2 * F * L * N
+    assert w["flops"] == f32["flops"]
+    assert w["bound_by"] == "bytes"
+
+
+def test_fmlp_render_chunk_bound():
+    """F-MLP at a render chunk's 2^20 rows: 117,440,512 B of rows (112 a
+    row) and 37,632 B of weights, 35.1 us at 3.35 TB/s, above its 19.7
+    GFLOP at the bf16 peak (19.9 us): bound by bytes."""
+    w = chip_smoke.mlp_fwd_work(1 << 20)
+    assert w["bytes"] == 117_440_512 + 37_632
+    assert w["flops"] == 2 * 9408 * (1 << 20)
+    assert w["bound_by"] == "bytes"
+    assert w["bound_ms"] == pytest.approx((117_440_512 + 37_632) / 3.35e12 * 1e3)
+
+
 @pytest.mark.parametrize("fn,row_bytes,row_flops,fixed", [
     ("mlp_fwd_work", 112, 2 * 9408, 9408 * 4),         # x 64 + d 32 + out 16
     ("mlp_bwd_work", 240, 2 * 27200, 2 * 9408 * 4),    # + g 16, dx 128
