@@ -51,9 +51,17 @@
 // forward with rgb = r2b . V2 (V2 padded to [64, 8]: four k16 steps into
 // one n8 tile), and writes each row's [rgb, dout[0]] as one 16-byte
 // store.  Those two outputs stay f32 and nothing rounds them, so they need
-// no re-sum.  D-MLP runs on the CUDA cores: one thread per row, the
-// bf16-rounded weights in shared memory as f32, read as warp-wide
-// broadcasts.
+// no re-sum.
+//
+// D-MLP is the density half of that forward on the same persistent grid
+// and cp.async double buffer, over the x rows alone: a0 = x . W0 with its
+// re-sums (density_hidden, which mlp_forward calls too), then sigma = hb .
+// W1[:, 0] as one n8 tile of four k16 steps, f32 and not re-summed.  A
+// warp's 16 sigmas are shuffled to lanes 0-15 and written as one 64-byte
+// store.  Its row costs 68 B and 4.2 kFLOP: bound by bytes (2^20 rows: 71
+// MB, 21 us).  It takes 75 us there (device time; NVIDIA H100 80GB HBM3,
+// 700 W), 2.3x the CUDA-core design it replaced, spent as F-MLP's is: the
+// test of each of a row's 64 first-layer sums and ~1.8 re-sums a tile.
 //
 // In B-MLP the cotangent products read the same bf16 weights through
 // ldmatrix without .trans (W^T).
@@ -79,7 +87,6 @@ constexpr int D_HID = 64;
 constexpr int D_GEO = 16;
 constexpr int SH_DIM = 16;
 constexpr int RGB_IN = D_GEO + SH_DIM;
-constexpr int kThreads = 128;  // D-MLP: one row per thread
 
 // Weight gradients, flattened in the order dW0, dW1, dV0, dV1, dV2[64,3].
 constexpr int G_W0 = 0;
@@ -143,65 +150,14 @@ constexpr int N_CM = CM_V1 + D_HID;
 constexpr size_t FWD_SMEM = (N_BW + kFwdWarps * F_WARP) * sizeof(__nv_bfloat16) +
                             N_CM * sizeof(float);  // 101,184 B
 
+// ---- D-MLP (tensor cores).  W0 and W1 at the same offsets (B_V0 ends
+// them), then each warp's x rows twice, then the column maxima of W0.
+constexpr int D_WARP = 2 * 16 * LX;
+constexpr size_t DEN_SMEM = (B_V0 + kFwdWarps * D_WARP) * sizeof(__nv_bfloat16) +
+                            D_HID * sizeof(float);  // 28,416 B
+
 __device__ __forceinline__ float bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// n bf16 values at p (16-byte aligned, n a multiple of 8) as f32; zeros
-// when the row is not live.
-template <int N>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* __restrict__ p,
-                                          bool live, float out[N]) {
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int q = 0; q < N / 8; ++q) {
-    const uint4 v = live ? p4[q] : make_uint4(0u, 0u, 0u, 0u);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 f = __bfloat1622float2(h[u]);
-      out[8 * q + 2 * u] = f.x;
-      out[8 * q + 2 * u + 1] = f.y;
-    }
-  }
-}
-
-// Row r of x [n, 32] (bf16) as f32.
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ x,
-                                         int64_t r, float xin[D_IN]) {
-  load_bf16<D_IN>(x + r * D_IN, true, xin);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    density_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                       const float* __restrict__ w0,
-                       const float* __restrict__ w1, float* __restrict__ out,
-                       int n) {
-  __shared__ float sw0[D_IN * D_HID];
-  __shared__ float sw1[D_HID];  // W1[:, 0]
-  for (int i = threadIdx.x; i < D_IN * D_HID; i += blockDim.x)
-    sw0[i] = bf(w0[i]);
-  for (int i = threadIdx.x; i < D_HID; i += blockDim.x)
-    sw1[i] = bf(w1[i * D_GEO]);
-  __syncthreads();
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  {
-    float xin[D_IN], a0[D_HID];
-    load_row(x, r, xin);
-#pragma unroll
-    for (int j = 0; j < D_HID; ++j) a0[j] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < D_IN; ++k) {
-#pragma unroll
-      for (int j = 0; j < D_HID; ++j)
-        a0[j] = fmaf(xin[k], sw0[k * D_HID + j], a0[j]);
-    }
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < D_HID; ++k) s = fmaf(bf(fmaxf(a0[k], 0.0f)), sw1[k], s);
-    out[r] = s;
-  }
 }
 
 // ---- Tensor-core building blocks of F-MLP and B-MLP: ldmatrix and
@@ -453,21 +409,28 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t base,
 }
 
 // acc[16 x 8NT] += a[16 x 16KT] . W, W [16KT x 8NT] row-major at shared
-// address w (row stride ldw); ldmatrix.trans gives two n-tiles a load.
+// address w (row stride ldw); ldmatrix.trans gives two n-tiles a load (the
+// last of an odd NT alone).
 template <int KT, int NT>
 __device__ __forceinline__ void mm_w(float (&acc)[NT][4],
                                      const uint32_t (&a)[KT][4], uint32_t w,
                                      int ldw, int lane) {
   const int q = lane >> 3, r = lane & 7;
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
+  for (int kk = 0; kk < KT; ++kk) {
 #pragma unroll
-    for (int j = 0; j < NT; j += 2) {
+    for (int j = 0; j + 1 < NT; j += 2) {
       uint32_t b[4];
       ldsm4t(b, w + 2 * ((kk * 16 + (q & 1) * 8 + r) * ldw + (j + (q >> 1)) * 8));
       mma(acc[j], a[kk], b[0], b[1]);
       mma(acc[j + 1], a[kk], b[2], b[3]);
     }
+    if constexpr (NT % 2 == 1) {
+      uint32_t b[2];
+      ldsm2t(b, w + 2 * ((kk * 16 + (lane & 15)) * ldw + (NT - 1) * 8));
+      mma(acc[NT - 1], a[kk], b[0], b[1]);
+    }
+  }
 }
 
 // acc[16 x 8NT] += a[16 x 16KT] . W^T, W [8NT x 16KT] row-major at shared
@@ -488,14 +451,21 @@ __device__ __forceinline__ void mm_wt(float (&acc)[NT][4],
     }
 }
 
-__device__ __forceinline__ void load_weights_bf16(
+// W0 and W1, rounded to bf16, at B_W0 and B_W1 of s.
+__device__ __forceinline__ void load_density_weights_bf16(
     __nv_bfloat16* s, const float* __restrict__ w0,
-    const float* __restrict__ w1, const float* __restrict__ v0,
-    const float* __restrict__ v1, const float* __restrict__ v2) {
+    const float* __restrict__ w1) {
   for (int i = threadIdx.x; i < D_IN * D_HID; i += blockDim.x)
     s[B_W0 + (i / D_HID) * LW0 + i % D_HID] = __float2bfloat16_rn(w0[i]);
   for (int i = threadIdx.x; i < D_HID * D_GEO; i += blockDim.x)
     s[B_W1 + (i / D_GEO) * LW1 + i % D_GEO] = __float2bfloat16_rn(w1[i]);
+}
+
+__device__ __forceinline__ void load_weights_bf16(
+    __nv_bfloat16* s, const float* __restrict__ w0,
+    const float* __restrict__ w1, const float* __restrict__ v0,
+    const float* __restrict__ v1, const float* __restrict__ v2) {
+  load_density_weights_bf16(s, w0, w1);
   for (int i = threadIdx.x; i < RGB_IN * D_HID; i += blockDim.x)
     s[B_V0 + (i / D_HID) * LV0 + i % D_HID] = __float2bfloat16_rn(v0[i]);
   for (int i = threadIdx.x; i < D_HID * D_HID; i += blockDim.x)
@@ -565,6 +535,29 @@ __device__ __forceinline__ auto floor_of(const uint32_t (&a)[KT][4],
   }
 }
 
+// The first layer of the warp's 16 rows (x at w.x): a0 = x . W0, re-summed
+// where ambiguous; returns the ReLU mask of a0 and leaves hb = bf16(relu(a0))
+// in ah as A fragments (STORE: also at w.hb, for the next product's
+// re-sums).  Weights and floor as mlp_forward's.
+template <bool BMLP, bool STORE = true>
+__device__ __forceinline__ uint32_t density_hidden(const __nv_bfloat16* sm,
+                                                   const float* cm,
+                                                   const WarpRows& w, int lane,
+                                                   uint32_t (&ah)[4][4]) {
+  float acc[8][4];
+  uint32_t ax[2][4];
+  load_a(ax[0], saddr(w.x), LX, lane);
+  load_a(ax[1], saddr(w.x + 16), LX, lane);
+  zero(acc);
+  mm_w<2, 8>(acc, ax, saddr(sm) + 2 * B_W0, LW0, lane);
+  fixup<8, D_IN, false, true>(acc, w.x, LX, sm + B_W0, 1, LW0, lane,
+                              0xffffffffu, 0.0f, 0.0f,
+                              floor_of<BMLP, 8>(ax, cm, CM_W0, lane));
+  const uint32_t m = relu_mask(acc);
+  to_a<4, STORE>(ah, acc, w.hb, LH, lane);
+  return m;
+}
+
 // The forward of the warp's 16 rows, at the twin's quantization points:
 // a0 = x . W0; hb = bf16(relu(a0)); dout = hb . W1; a1 = bf16(dout) .
 // V0[:16] + d . V0[16:]; r1b = bf16(relu(a1)); a2 = r1b . V1; r2b =
@@ -578,19 +571,10 @@ __device__ __forceinline__ void mlp_forward(const __nv_bfloat16* sm,
                                             int lane, Fwd& f) {
   const uint32_t s0 = saddr(sm);
   const int gr = lane >> 2, t = lane & 3, q = lane >> 3, r8 = lane & 7;
-  float acc[8][4];
-  uint32_t ax[2][4];
-  load_a(ax[0], saddr(w.x), LX, lane);
-  load_a(ax[1], saddr(w.x + 16), LX, lane);
-  zero(acc);
-  mm_w<2, 8>(acc, ax, s0 + 2 * B_W0, LW0, lane);
-  fixup<8, D_IN, false, true>(acc, w.x, LX, sm + B_W0, 1, LW0, lane,
-                              0xffffffffu, 0.0f, 0.0f,
-                              floor_of<BMLP, 8>(ax, cm, CM_W0, lane));
-  f.m0 = relu_mask(acc);
   uint32_t ah[4][4];
-  to_a<4>(ah, acc, w.hb, LH, lane);
+  f.m0 = density_hidden<BMLP>(sm, cm, w, lane, ah);
   __syncwarp();
+  float acc[8][4];
   // dout = hb . W1 (f32); db = bf16(dout).
   zero(f.dout);
   mm_w<4, 2>(f.dout, ah, s0 + 2 * B_W1, LW1, lane);
@@ -658,22 +642,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Starts the copy of rows r0 .. r0+15 of src [n, W] (bf16) to a warp's
+// shared rows at dst (row stride ld), 16 bytes a copy; zeros past n.
+template <int W>
+__device__ __forceinline__ void load_rows_async(
+    const __nv_bfloat16* __restrict__ src, int64_t r0, int n,
+    __nv_bfloat16* dst, int ld, int lane) {
+  constexpr int kParts = W / 8;
+#pragma unroll
+  for (int h = 0; h < 16 * kParts / 32; ++h) {
+    const int c = lane + 32 * h, row = c / kParts, part = c % kParts;
+    const bool live = r0 + row < n;
+    cp_async16(saddr(dst + row * ld + part * 8),
+               src + (live ? (r0 + row) * W + part * 8 : 0), live);
+  }
+}
+
 // Starts the copy of rows r0 .. r0+15 of x and d into a warp's buffers: x
 // to xs (row stride LX), d to in[:, 16:] (row stride LIN); zeros past n.
 __device__ __forceinline__ void load_tile_async(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ d,
     int64_t r0, int n, __nv_bfloat16* xs, __nv_bfloat16* in, int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = lane + 32 * h, row = c >> 2, part = c & 3;
-    const bool live = r0 + row < n;
-    cp_async16(saddr(xs + row * LX + part * 8),
-               x + (live ? (r0 + row) * D_IN + part * 8 : 0), live);
-  }
-  const int row = lane >> 1, part = lane & 1;
-  const bool live = r0 + row < n;
-  cp_async16(saddr(in + row * LIN + D_GEO + part * 8),
-             d + (live ? (r0 + row) * SH_DIM + part * 8 : 0), live);
+  load_rows_async<D_IN>(x, r0, n, xs, LX, lane);
+  load_rows_async<SH_DIM>(d, r0, n, in + D_GEO, LIN, lane);
 }
 
 // F-MLP: a persistent grid; warp w of block b takes the 16-row tiles
@@ -737,6 +728,50 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
       o[r0 + gr] = make_float4(rgb[0], rgb[1], c2lo, fw.dout[0][0]);
     if (t == 0 && r0 + gr + 8 < n)
       o[r0 + gr + 8] = make_float4(rgb[2], rgb[3], c2hi, fw.dout[0][2]);
+    __syncwarp();  // done with buffer b: the next tile but one loads into it
+  }
+}
+
+// D-MLP: F-MLP's grid and tile order over the x rows alone.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    density_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                       const float* __restrict__ w0,
+                       const float* __restrict__ w1, float* __restrict__ out,
+                       int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __nv_bfloat16* xs = sm + B_V0 + warp * D_WARP;
+  const int64_t n_tiles = ((int64_t)n + 15) / 16;
+  const int64_t stride = (int64_t)gridDim.x * kFwdWarps;
+  int64_t tile = (int64_t)blockIdx.x * kFwdWarps + warp;
+  if (tile < n_tiles) load_rows_async<D_IN>(x, tile * 16, n, xs, LX, lane);
+  cp_async_commit();
+  load_density_weights_bf16(sm, w0, w1);
+  float* cm = reinterpret_cast<float*>(sm + B_V0 + kFwdWarps * D_WARP);
+  for (int i = threadIdx.x; i < D_HID; i += blockDim.x)
+    cm[CM_W0 + i] = col_max(w0, D_IN, D_HID, i);
+  __syncthreads();
+  const uint32_t s0 = saddr(sm);
+  for (int b = 0; tile < n_tiles; tile += stride, b ^= 1) {
+    const int64_t next = tile + stride;
+    if (next < n_tiles)
+      load_rows_async<D_IN>(x, next * 16, n, xs + (b ^ 1) * 16 * LX, LX, lane);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's rows have landed
+    __syncwarp();
+    uint32_t ah[4][4];
+    density_hidden<false, false>(
+        sm, cm, {xs + b * 16 * LX, nullptr, nullptr, nullptr, nullptr}, lane,
+        ah);
+    float s[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+    mm_w<4, 1>(s, ah, s0 + 2 * B_W1, LW1, lane);
+    // Lane 4g holds sigma (column 0) of rows g and g + 8: lane r < 16
+    // takes row r's, and the warp writes its 16 rows with one store.
+    const float lo = __shfl_sync(0xffffffffu, s[0][0], 4 * (lane & 7));
+    const float hi = __shfl_sync(0xffffffffu, s[0][2], 4 * (lane & 7));
+    const int64_t r = tile * 16 + lane;
+    if (lane < 16 && r < n) out[r] = lane < 8 ? lo : hi;
     __syncwarp();  // done with buffer b: the next tile but one loads into it
   }
 }
@@ -952,7 +987,24 @@ int sm_count() {
   return sms;
 }
 
-int row_tiles(int n) { return (int)(((int64_t)n + kThreads - 1) / kThreads); }
+// Sets `kernel`'s dynamic shared memory to smem bytes and gives in *blocks
+// its persistent grid for n rows: as many blocks of kFwdThreads as fit on
+// the card at once, or fewer when the rows' 16-row tiles run out.
+template <class Kernel>
+cudaError_t persistent_grid(Kernel kernel, size_t smem, int n, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kFwdThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t need = (((int64_t)n + 15) / 16 + kFwdWarps - 1) / kFwdWarps;
+  const int64_t fit = (int64_t)(sm_count() > 0 ? sm_count() : 1) *
+                      (per_sm > 0 ? per_sm : 1);
+  *blocks = (int)(need < fit ? need : fit);
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -966,21 +1018,10 @@ extern "C" int fused_mlp_fwd(const void* x, const void* d, const void* w0,
                              const void* v2, void* out, int n, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FWD_SMEM);
+  int blocks = 0;
+  const cudaError_t err = persistent_grid(mlp_fwd_kernel, FWD_SMEM, n, &blocks);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_fwd_kernel,
-                                                      kFwdThreads, FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  // As many blocks as fit on the card at once, or fewer when the rows'
-  // 16-row tiles run out.
-  const int64_t need = (((int64_t)n + 15) / 16 + kFwdWarps - 1) / kFwdWarps;
-  const int64_t fit = (int64_t)(sm_count() > 0 ? sm_count() : 1) *
-                      (per_sm > 0 ? per_sm : 1);
-  mlp_fwd_kernel<<<(int)(need < fit ? need : fit), kFwdThreads, FWD_SMEM,
-                   (cudaStream_t)stream>>>(
+  mlp_fwd_kernel<<<blocks, kFwdThreads, FWD_SMEM, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)d, (const float*)w0,
       (const float*)w1, (const float*)v0, (const float*)v1, (const float*)v2,
       (float*)out, n);
@@ -1028,7 +1069,11 @@ extern "C" int fused_density_mlp_fwd(const void* x, const void* w0,
                                      void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  density_fwd_kernel<<<row_tiles(n), kThreads, 0, (cudaStream_t)stream>>>(
+  int blocks = 0;
+  const cudaError_t err =
+      persistent_grid(density_fwd_kernel, DEN_SMEM, n, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  density_fwd_kernel<<<blocks, kFwdThreads, DEN_SMEM, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const float*)w0, (const float*)w1,
       (float*)out, n);
   return (int)cudaGetLastError();

@@ -1,14 +1,19 @@
-"""Procedural blender-style test scene: opaque coloured spheres.
+"""Procedural blender-style test scenes: the plain spheres and the "hard"
+quality scene (textured spheres, a thin helix and a tilted ring).
 
-The analytic renderer of `jnerf_tpu/dataset/synthetic.py` (``spheres``
-scene), copied so that the port builds its dataset without importing the
-JAX package.  The textured ``hard`` scene, supersampling and the on-disk
-scene writers are not ported yet.
+The analytic renderer of `jnerf_tpu/dataset/synthetic.py`, copied so that
+the port builds its datasets without importing the JAX package.  The
+scene definitions stay numpy; the ray tracing is float64 tensor code on
+the caller's device, with every sum written out in the order numpy takes
+it, so that on the CPU the plain scene's images equal the JAX package's bit
+for bit and the hard scene's within float64 rounding.  The on-disk scene
+writers are not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Scene definition in NeRF world space (cameras orbit at radius ~4).
 # Spheres: (center xyz, radius, rgb color)
@@ -19,6 +24,58 @@ _SPHERES = [
     (np.array([0.1, -0.55, -0.35]), 0.28, np.array([0.9, 0.8, 0.3])),
 ]
 _LIGHT_DIR = np.array([0.5, 0.6, 0.62])
+
+
+def _hard_scene():
+    """Object list of the "hard" quality scene: 4 large spheres with a
+    smooth single-frequency albedo texture, a helix of 72 spheres of radius
+    0.035 around the main one and a tilted ring of 28 spheres of radius
+    0.045 (thin structure that stresses the occupancy grid).
+
+    Returns (centers [K,3], radii [K], colors [K,3], tex_freq [K],
+    tex_phase [K,3]); tex_freq 0 disables texturing for an object.
+    """
+    centers, radii, colors, freqs, phases = [], [], [], [], []
+
+    def add(c, r, col, f=0.0, ph=(0.0, 0.0, 0.0)):
+        centers.append(c)
+        radii.append(r)
+        colors.append(col)
+        freqs.append(f)
+        phases.append(ph)
+
+    add([0.0, 0.0, -0.05], 0.52, [0.85, 0.45, 0.35], 22.0, (0.3, 1.7, 0.9))
+    add([0.62, 0.3, 0.28], 0.27, [0.3, 0.75, 0.45], 34.0, (2.1, 0.4, 1.2))
+    add([-0.55, -0.25, 0.4], 0.24, [0.35, 0.45, 0.9], 27.0, (1.0, 2.6, 0.2))
+    add([0.05, -0.6, -0.3], 0.22, [0.9, 0.85, 0.4], 40.0, (0.6, 1.1, 2.8))
+
+    n_h = 72
+    for i in range(n_h):
+        t = 4.0 * np.pi * i / n_h
+        centers.append([0.78 * np.cos(t), 0.78 * np.sin(t),
+                        -0.5 + 1.0 * i / n_h])
+        radii.append(0.035)
+        hue = i / n_h
+        colors.append([0.75 + 0.25 * np.cos(2 * np.pi * hue),
+                       0.55 + 0.35 * np.sin(2 * np.pi * hue),
+                       0.85 - 0.45 * hue])
+        freqs.append(0.0)
+        phases.append((0.0, 0.0, 0.0))
+
+    n_r = 28
+    tilt = np.radians(35.0)
+    for i in range(n_r):
+        t = 2.0 * np.pi * i / n_r
+        x, y = 0.95 * np.cos(t), 0.95 * np.sin(t)
+        centers.append([x, y * np.cos(tilt), y * np.sin(tilt)])
+        radii.append(0.045)
+        colors.append([0.4 + 0.5 * (i % 2), 0.55, 0.9 - 0.5 * (i % 2)])
+        freqs.append(0.0)
+        phases.append((0.0, 0.0, 0.0))
+
+    return (np.asarray(centers, np.float64), np.asarray(radii, np.float64),
+            np.asarray(colors, np.float64), np.asarray(freqs, np.float64),
+            np.asarray(phases, np.float64))
 
 
 def _look_at_pose(eye: np.ndarray) -> np.ndarray:
@@ -33,54 +90,96 @@ def _look_at_pose(eye: np.ndarray) -> np.ndarray:
     return m.astype(np.float32)
 
 
-def _trace(origin, dirs):
-    """Nearest-hit shade of rays against the spheres.
+def _scene_arrays(scene: str):
+    if scene == "hard":
+        return _hard_scene()
+    if scene != "spheres":
+        raise ValueError(f"unknown scene {scene!r}: 'spheres' or 'hard'")
+    centers = np.asarray([s[0] for s in _SPHERES], np.float64)
+    radii = np.asarray([s[1] for s in _SPHERES], np.float64)
+    colors = np.asarray([s[2] for s in _SPHERES], np.float64)
+    k = len(_SPHERES)
+    return centers, radii, colors, np.zeros(k), np.zeros((k, 3))
 
-    origin/dirs: [..., 3]; returns (rgb [..., 3], hit [...] bool).
+
+def _dot3(v: torch.Tensor, w) -> torch.Tensor:
+    """sum_i v[..., i] * w_i over the last axis of 3, in numpy's order
+    ((v0 w0 + v1 w1) + v2 w2); w is a tensor [..., 3] or 3 floats."""
+    w = w.unbind(-1) if torch.is_tensor(w) else [float(x) for x in w]
+    return v[..., 0] * w[0] + v[..., 1] * w[1] + v[..., 2] * w[2]
+
+
+def _trace(origin, dirs, centers, radii, colors, freqs, phases):
+    """Nearest-hit shade of rays from one camera against textured spheres.
+
+    origin: numpy [3] float64; dirs: float64 tensor [N, 3]; returns (rgb
+    [N, 3] float64, hit [N] bool) on dirs' device.  Texture: a smooth
+    per-object albedo modulation 0.6 + 0.4 * sin(f px + ph0 + 2.1 pz) *
+    sin(f py + ph1 - 1.3 pz), one frequency per object, so a converged
+    NeRF can represent it exactly.
     """
+    dev, f64 = dirs.device, torch.float64
     light = _LIGHT_DIR / np.linalg.norm(_LIGHT_DIR)
-    best_t = np.full(origin.shape[:-1], np.inf)
-    rgb = np.zeros(origin.shape[:-1] + (3,))
-    hit = np.zeros(origin.shape[:-1], bool)
-    for center, radius, color in _SPHERES:
-        oc = origin - center
-        b = np.sum(oc * dirs, axis=-1)
-        c = np.sum(oc * oc, axis=-1) - radius * radius
+    n = dirs.shape[0]
+    best_t = torch.full((n,), float("inf"), dtype=f64, device=dev)
+    rgb = torch.zeros((n, 3), dtype=f64, device=dev)
+    hit = torch.zeros((n,), dtype=torch.bool, device=dev)
+    origin_t = torch.as_tensor(origin, dtype=f64, device=dev)
+    for k in range(len(radii)):
+        center, radius = centers[k], float(radii[k])
+        oc = [float(v) for v in origin - center]  # the same for every ray
+        b = _dot3(dirs, oc)
+        c = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - radius * radius
         disc = b * b - c
         valid = disc > 0
-        t_hit = -b - np.sqrt(np.where(valid, disc, 0.0))
+        t_hit = -b - torch.sqrt(torch.where(valid, disc, 0.0))
         valid &= (t_hit > 0) & (t_hit < best_t)
-        if not valid.any():
-            continue
-        p = origin + t_hit[..., None] * dirs
-        n = (p - center) / radius
-        shade = 0.35 + 0.65 * np.clip(np.sum(n * light, axis=-1), 0, 1)
-        albedo = np.asarray(color, np.float64)[None] * np.ones_like(p)
-        rgb = np.where(valid[..., None], albedo * shade[..., None], rgb)
-        best_t = np.where(valid, t_hit, best_t)
+        p = origin_t + t_hit[:, None] * dirs
+        nrm = (p - torch.as_tensor(center, dtype=f64, device=dev)) / radius
+        shade = 0.35 + 0.65 * torch.clamp(_dot3(nrm, light), 0, 1)
+        albedo = torch.as_tensor(colors[k], dtype=f64, device=dev)
+        if freqs[k] > 0:
+            f, ph = float(freqs[k]), [float(v) for v in phases[k]]
+            mod = 0.6 + 0.4 * (
+                torch.sin(f * p[:, 0] + ph[0] + 2.1 * p[:, 2])
+                * torch.sin(f * p[:, 1] + ph[1] - 1.3 * p[:, 2]))
+            albedo = albedo * mod[:, None]
+        rgb = torch.where(valid[:, None], albedo * shade[:, None], rgb)
+        best_t = torch.where(valid, t_hit, best_t)
         hit |= valid
     return rgb, hit
 
 
 def render_analytic(pose: np.ndarray, H: int, W: int,
-                    camera_angle_x: float) -> np.ndarray:
-    """Ray-trace the spheres for one camera; returns RGBA float [H,W,4]."""
-    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
-    ys, xs = np.mgrid[0:H, 0:W]
-    dirs_cam = np.stack(
-        [
-            (xs + 0.5 - W / 2) / focal,
-            -(ys + 0.5 - H / 2) / focal,
-            -np.ones_like(xs, dtype=np.float64),
-        ],
-        axis=-1,
-    )
-    R, t = pose[:, :3], pose[:, 3]
-    dirs = dirs_cam @ R.T
-    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
-    origin = np.broadcast_to(t, dirs.shape)
+                    camera_angle_x: float, scene: str = "spheres",
+                    ssaa: int = 1, device=None) -> torch.Tensor:
+    """Ray-trace a scene for one camera; returns RGBA float32 [H, W, 4] on
+    ``device``.
 
-    rgb, hit = _trace(origin, dirs)
-    alpha = hit.astype(np.float64)
-    rgba = np.concatenate([rgb, alpha[..., None]], axis=-1)
-    return rgba.astype(np.float32)
+    ssaa > 1 traces ssaa * ssaa subpixel rays per pixel and box-filters in
+    premultiplied space (as the trainer composites rgb * a + bg * (1 - a)),
+    then un-premultiplies: the soft edges a volume renderer produces.
+    """
+    f64 = torch.float64
+    Hs, Ws = H * ssaa, W * ssaa
+    focal = float(0.5 * Ws / np.tan(0.5 * camera_angle_x))
+    xs = torch.arange(Ws, dtype=f64, device=device)
+    ys = torch.arange(Hs, dtype=f64, device=device)
+    dirs_cam = torch.stack([
+        ((xs + 0.5 - Ws / 2) / focal).expand(Hs, Ws),
+        (-(ys + 0.5 - Hs / 2) / focal)[:, None].expand(Hs, Ws),
+        torch.full((Hs, Ws), -1.0, dtype=f64, device=device),
+    ], dim=-1)
+    pose = np.asarray(pose, np.float64)
+    R = torch.as_tensor(pose[:, :3], device=device)
+    dirs = dirs_cam @ R.T
+    dirs = dirs / torch.sqrt(_dot3(dirs, dirs))[..., None]
+
+    rgb, hit = _trace(pose[:, 3], dirs.reshape(-1, 3), *_scene_arrays(scene))
+    rgb, alpha = rgb.reshape(Hs, Ws, 3), hit.to(f64).reshape(Hs, Ws)
+    if ssaa > 1:
+        premul = rgb * alpha[..., None]
+        premul = premul.reshape(H, ssaa, W, ssaa, 3).mean(dim=(1, 3))
+        alpha = alpha.reshape(H, ssaa, W, ssaa).mean(dim=(1, 3))
+        rgb = premul / torch.clamp(alpha[..., None], min=1e-8)
+    return torch.cat([rgb, alpha[..., None]], dim=-1).float()

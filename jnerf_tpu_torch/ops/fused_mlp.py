@@ -18,9 +18,10 @@ d(dout)[:, 0] in f32 before its bf16 rounding, and every cotangent that
 feeds a product rounded to bf16.  ``dir_feat`` gets no gradient.
 
 Three CUDA kernels (`jnerf_tpu_torch/csrc/fused_mlp.cu`) compute these:
-``fused_mlp_fwd`` (F-MLP) and ``fused_mlp_bwd`` (B-MLP, weight gradients
-reduced in a fixed order, without atomics), which share one tensor-core
-forward, and ``fused_density_mlp`` (D-MLP).  Each wrapper runs its plain PyTorch twin
+``fused_mlp_fwd`` (F-MLP), ``fused_mlp_bwd`` (B-MLP, weight gradients
+reduced in a fixed order, without atomics) and ``fused_density_mlp``
+(D-MLP, the forward's density half), which share one tensor-core
+forward.  Each wrapper runs its plain PyTorch twin
 (``fused_ngp_mlp_plain``, ``fused_ngp_mlp_bwd_plain``,
 ``fused_density_mlp_plain``) only when given CPU tensors; for CUDA tensors
 it launches the kernel or raises.  Each wrapper counts its launches in

@@ -16,12 +16,23 @@ without a background term and add the run's background colour after.  The
 inference jitter is one [chunk] draw per image, used for every chunk (the
 JAX package's one key per image), from the runner's generator unless
 given.  Images are written only by ``save_img``, which imports PIL when it
-is called.  Checkpoints and the mp4 ``render`` task are not ported yet.
+is called.
+
+Checkpoints (``save_ckpt``, ``load_ckpt``, ``cfg.load_ckpt``, the
+``params.pkl`` that ``train`` writes before ``test``) keep the JAX
+runner's pickle and keys, with numpy leaves and Python scalars only, so
+that a machine without JAX or optax reads them: ``model`` and the EMA
+shadow are JAX params trees (`utils/convert.py`), and ``nested_optimizer``
+is the Adam state as a plain dict ``{"count", "mu", "nu"}`` with the
+moments in the same tree.  ``load_ckpt`` also reads the JAX runner's
+checkpoints, whose Adam state is optax's (found by its field names; that
+needs optax to unpickle).  The mp4 ``render`` task is not ported yet.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -31,6 +42,10 @@ from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
 from jnerf_tpu_torch.ops.compact import compact_indices, render_rays_compact
 from jnerf_tpu_torch.ops.composite import density_l1_reg, render_rays
 from jnerf_tpu_torch.utils.config import get_cfg
+from jnerf_tpu_torch.utils.convert import (
+    jax_params_to_state_dict,
+    state_dict_to_jax_params,
+)
 from jnerf_tpu_torch.utils.registry import (
     DATASETS,
     LOSSES,
@@ -87,6 +102,8 @@ class Runner:
         self.val_freq = 4096
         # Created when an image is first written, not here.
         self.save_path = os.path.join(cfg.log_dir or "./logs", self.exp_name)
+        self.ckpt_path = cfg.ckpt_path or os.path.join(self.save_path,
+                                                       "params.pkl")
         self.W, self.H = (int(v) for v in self.dataset["train"].resolution)
         self.render_chunk_rays = 4096
         # Picks the image of render_img(img_id=None).
@@ -95,6 +112,8 @@ class Runner:
         self.tot_train_steps = cfg.tot_train_steps
         self.sampler.init_state()
         self.start = 0
+        if cfg.load_ckpt:
+            self.load_ckpt(self.ckpt_path)
         cfg.m_training_step = 0
         # (host counter, event, n_steps, n_rays_then) of the last finished
         # window, consumed by the lagged batch adaptation in train_range.
@@ -219,9 +238,10 @@ class Runner:
                                          generator=self.generator)
 
     def train(self):
-        """Train to ``tot_train_steps``, printing one plain line every
-        ``update_den_freq * 16`` steps, with the PSNR of a validation render
-        every ``val_freq`` steps; then render and score the test set."""
+        """Train from ``start`` to ``tot_train_steps``, printing one plain
+        line every ``update_den_freq * 16`` steps, with the PSNR of a
+        validation render every ``val_freq`` steps; then save
+        ``<save_path>/params.pkl`` and render and score the test set."""
         every = self.sampler.update_den_freq * 16
         i = self.start
         while i < self.tot_train_steps:
@@ -235,12 +255,16 @@ class Runner:
             if i % self.val_freq == 0 and i < self.tot_train_steps:
                 line += f" | VAL PSNR={float(mse2psnr(self.val_img(i))):.3f}"
             print(line, flush=True)
+        self.save_ckpt(os.path.join(self.save_path, "params.pkl"))
         self.test()
 
     # ------------------------------------------------------------------- test
-    def test(self):
-        """Render the test set into ``<save_path>/test`` and print and
-        return its mean PSNR (None for a dataset without images)."""
+    def test(self, load_ckpt=False):
+        """Render the test set into ``<save_path>/test`` (after loading
+        ``ckpt_path`` if ``load_ckpt``) and print and return its mean PSNR
+        (None for a dataset without images)."""
+        if load_ckpt:
+            self.load_ckpt(self.ckpt_path)
         path = os.path.join(self.save_path, "test")
         os.makedirs(path, exist_ok=True)
         mse_list = self.render_test(save_path=path)
@@ -249,6 +273,68 @@ class Runner:
             print(f"TOTAL TEST PSNR===={tot_psnr}", flush=True)
             return tot_psnr
         return None
+
+    # ----------------------------------------------------------- checkpoints
+    def _jax_tree(self, tensors):
+        """Tensors in ``self.params`` order -> the JAX params tree (numpy)."""
+        names = [name for name, _ in self.model.named_parameters()]
+        return state_dict_to_jax_params(dict(zip(names, tensors)))
+
+    def _from_jax_tree(self, tree):
+        """A JAX params tree -> tensors on the runner's device, in
+        ``self.params`` order."""
+        sd = jax_params_to_state_dict(tree)
+        return [sd[name].to(self.device)
+                for name, _ in self.model.named_parameters()]
+
+    def save_ckpt(self, path):
+        """Write the run's state to ``path``, creating its directory.
+        ``global_step`` is the number of steps taken, where ``train``
+        resumes (the JAX runner writes the first step of its last window
+        there)."""
+        adam = self.optimizer
+        moments = {k: self._jax_tree([adam.state[p][k] if adam.state.get(p)
+                                      else torch.zeros_like(p)
+                                      for p in self.params])
+                   for k in ("mu", "nu")}
+        ema = None
+        if self.ema is not None:
+            ema = {"shadow": self._jax_tree(self.ema_state["shadow"]),
+                   "steps": int(self.ema_state["steps"])}
+        ckpt = {
+            "global_step": adam.count,
+            "model": self._jax_tree(self.params),
+            "sampler": self.sampler.state_dict(),
+            "optimizer": {"steps": adam.count},
+            "nested_optimizer": {"count": adam.count, **moments},
+            "ema_optimizer": ema,
+        }
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(ckpt, f)
+
+    def load_ckpt(self, path):
+        """Restore a checkpoint of this runner or of the JAX runner: the
+        model, the sampler, the EMA shadow, the Adam state and ``start``,
+        the step that ``train`` resumes at."""
+        print("Loading ckpt from:", path, flush=True)
+        with open(path, "rb") as f:
+            ckpt = pickle.load(f)
+        self.model.load_state_dict(jax_params_to_state_dict(ckpt["model"]))
+        self.sampler.load_state_dict(ckpt["sampler"])
+        adam = _adam_state(ckpt["nested_optimizer"])
+        if adam is None:
+            raise ValueError(f"{path}: no Adam state (count, mu, nu) in "
+                             "nested_optimizer")
+        self.optimizer.count = int(adam["count"])
+        for p, mu, nu in zip(self.params, self._from_jax_tree(adam["mu"]),
+                             self._from_jax_tree(adam["nu"])):
+            self.optimizer.state[p] = {"mu": mu, "nu": nu}
+        if self.ema is not None and ckpt.get("ema_optimizer") is not None:
+            self.ema_state = {
+                "shadow": self._from_jax_tree(ckpt["ema_optimizer"]["shadow"]),
+                "steps": int(ckpt["ema_optimizer"]["steps"])}
+        self.start = int(ckpt["global_step"])
 
     # -------------------------------------------------------------- rendering
     @torch.no_grad()
@@ -350,3 +436,19 @@ class Runner:
             img = np.concatenate([img, alpha], axis=-1)
         arr = (np.asarray(img) * 255 + 0.5).clip(0, 255).astype(np.uint8)
         Image.fromarray(arr).save(path)
+
+
+def _adam_state(state):
+    """The Adam state {count, mu, nu} in a checkpoint's nested_optimizer:
+    the port's dict, or inside the optax state tree that the JAX runner
+    pickles, the ScaleByAdamState found by its field names; None if absent."""
+    if isinstance(state, dict) and {"count", "mu", "nu"} <= set(state):
+        return state
+    if {"count", "mu", "nu"} <= set(getattr(state, "_fields", ())):
+        return state._asdict()
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None

@@ -242,6 +242,22 @@ def test_fmlp_matches_plain_and_repeats(dev, n):
     assert torch.equal(out, out2)
 
 
+@pytest.mark.parametrize("n", [8192, 5000, 70000, 100_003, 1 << 20])
+def test_dmlp_matches_plain_and_repeats(dev, n):
+    """D-MLP, F-MLP's density half on the tensor cores, against its twin at
+    F-MLP's row counts: atol 1e-5, as above, and two runs equal bit for
+    bit."""
+    ws, x, _, _ = _mlp_inputs(dev, n, seed=4)
+    x = x.bfloat16()
+    out = fused_mlp.fused_density_mlp(ws[0], ws[1], x)
+    out2 = fused_mlp.fused_density_mlp(ws[0], ws[1], x)
+    ref = fused_mlp.fused_density_mlp_plain(ws[0], ws[1], x)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 1)
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert torch.equal(out, out2)
+
+
 def test_fused_autograd_goes_through_both_kernels(dev):
     """FusedNGPMLP launches F-MLP forward and B-MLP backward; dir_feat
     gets no gradient; the gradients equal B-MLP's on the same g."""

@@ -108,3 +108,53 @@ def test_smoke_alone_fails(tmp_path):
                           capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_quality_bar_is_the_jax_psnr_less_half_a_db():
+    """The hard-scene phase trains the JAX package's quality config and
+    holds its mean val PSNR after 8192 iterations to the JAX package's at
+    8192 (logs/ceiling_f8l4_m17f2k19_hard.json, trajectory[0]: 34.894 dB)
+    less 0.5 dB: 34.394.  The reading it prints at 3328 iterations is that
+    of logs/quality/psnr300_f8l4_m17f2k19_hard.json (30.34 dB, the mean of
+    its four views), whose 3072 iterations follow bench_psnr.py's 256
+    warm-up steps."""
+    import json
+    import re
+
+    import numpy as np
+
+    from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
+
+    repo = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    with open(os.path.join(repo, "logs", "ceiling_f8l4_m17f2k19_hard.json")) as f:
+        ceiling = json.load(f)
+    with open(os.path.join(repo, "logs", "quality",
+                           "psnr300_f8l4_m17f2k19_hard.json")) as f:
+        early = json.load(f)
+    with open(os.path.join(repo, "bench_psnr.py")) as f:
+        warmup = int(re.search(r'"--warmup-steps", type=int, default=(\d+)',
+                               f.read()).group(1))
+    point = ceiling["trajectory"][0]
+    assert point["iters"] == chip_smoke.QUALITY_STEPS == 8192
+    assert point["psnr"] == chip_smoke.JAX_QUALITY_PSNR == 34.894
+    assert chip_smoke.QUALITY_PSNR_BAR == pytest.approx(34.394)
+    extra = early["extra"]
+    assert early["metric"] == "ngp_psnr_at_budget" and early["unit"] == "dB"
+    assert chip_smoke.JAX_EARLY_PSNR == early["value"] == 30.34
+    assert abs(np.mean(extra["per_view_psnr"]) - early["value"]) < 0.01
+    assert chip_smoke.EARLY_STEPS == warmup + extra["iters"] == 256 + 3072
+    for run in (ceiling, extra):
+        assert (run["encoder"], run["fast_cap"], run["compact"]) == (
+            "f8l4", 524288, "m=2^17,f=2")
+    assert ceiling["scene"] == "synthetic-hard-512-ssaa2"
+    cfg = chip_smoke.headline_cfg(ngp_synthetic_cfg, False, H=512, W=512,
+                                  scene="hard", ssaa=2, n_val=4)
+    try:
+        pe = cfg.encoder.pos_encoder
+        assert (pe.n_levels, pe.n_features_per_level) == (4, 8)
+        assert (cfg.hashmap_fast_cap, cfg.compacted_batch,
+                cfg.march_budget_factor) == (1 << 19, 1 << 17, 2)
+        assert cfg.dataset.val.n_images == 4 and cfg.dataset.train.H == 512
+        assert (cfg.dataset.train.scene, cfg.dataset.train.ssaa) == ("hard", 2)
+    finally:
+        cfg.clear()

@@ -115,8 +115,8 @@ def test_train_range_runs_and_adapts(both_cfgs):
 def test_train_prints_plain_lines(both_cfgs, capsys, tmp_path):
     """Runner.train runs to tot_train_steps and reports in plain lines,
     with the JAX cadence: a validation render (PSNR on the line, image and
-    target written) every val_freq steps, and the test set rendered,
-    written and scored at the end."""
+    target written) every val_freq steps, and at the end the checkpoint
+    params.pkl written and the test set rendered, written and scored."""
     from jnerf_tpu_torch.runner import Runner
 
     both_cfgs[1].tot_train_steps = 20
@@ -131,7 +131,7 @@ def test_train_prints_plain_lines(both_cfgs, capsys, tmp_path):
     assert np.isfinite(float(lines[2].split("=")[-1]))
     out = tmp_path / "logs" / "bench"
     assert {p.name for p in out.iterdir()} == {"img16.png", "target16.png",
-                                               "test"}
+                                               "params.pkl", "test"}
     assert len(list((out / "test").iterdir())) == 4
 
 
@@ -147,10 +147,11 @@ def test_runner_refuses_missing_cuda(both_cfgs):
 
 
 def test_port_imports_no_jax():
-    """Importing the port, training two steps (fused MLP option on) and
-    rendering a pose of the demo path pull in none of JAX, the JAX
-    package, optax, yaml, PIL, cv2 or imageio (checked in a fresh
-    interpreter, beyond what torch itself imports)."""
+    """Importing the port and its quality tool, training two steps (fused
+    MLP option on), rendering a pose of the demo path and building a tiny
+    hard-scene dataset pull in none of JAX, the JAX package, optax, yaml,
+    PIL, cv2 or imageio (checked in a fresh interpreter, beyond what torch
+    itself imports)."""
     code = """
 import sys
 import numpy, torch
@@ -168,6 +169,10 @@ r = Runner(device="cpu")
 r.train_range(0, 2)
 r.render_chunk_rays = 128
 assert r.render_img_with_pose(camera_path.path_spherical(2)[0]).shape == (16, 16, 3)
+import jnerf_tpu_torch.tools.bf16_rays_probe, jnerf_tpu_torch.tools.ceiling_run
+from jnerf_tpu_torch.dataset import SyntheticSpheresDataset
+ds = SyntheticSpheresDataset(n_images=2, H=8, W=8, scene="hard", ssaa=2)
+assert ds.image_data.shape == (2 * 8 * 8, 4)
 new = {m.split(".")[0] for m in set(sys.modules) - before}
 print(sorted(new & {"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
                     "cv2", "imageio", "tqdm"}))
