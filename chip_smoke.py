@@ -38,7 +38,22 @@ on failure:
    read at 3328 iterations and held at 8192 to the JAX package's at the
    same iterations less 0.5 dB; then the field saved with save_ckpt, a
    fresh Runner built from the checkpoint, and val view 0 rendered again,
-   which must equal the first render bit for bit.
+   which must equal the first render bit for bit;
+8. the user's entry point: a blender-format scene written by the port's
+   make_synthetic_scene (24 train, 2 val, 4 test images of 256x256) and a
+   config whose _base_ is projects/ngp/configs/ngp_base.py (full width:
+   16 levels x 2 features, 2^19-entry hash levels, compacted batch 2^16),
+   run through `python -m jnerf_tpu_torch.tools.run_net` (its main, in this
+   process, so the launch counters read what it ran): --task train for
+   4352 steps (a validation render at 4096, then params.pkl and the test
+   set) and --task test from the checkpoint, with the linear hash; then
+   the same with hash_indexing="xor" for 1024 steps, whose training and
+   renders must go through kernels F and B in xor mode.  Each TOTAL TEST
+   PSNR must clear the PSNR of predicting the background everywhere by 10
+   dB, and the test task must read within 0.5 dB of the train task's.
+   Then kernels F and B in xor mode are checked against their twins at the
+   flagship xor table (6,098,120 entries) on 2^17 uniform samples and on
+   two steps' kept samples of the trained xor field, and timed.
 
 The last lines are the kernel table as JSON (each kernel with its bound:
 the larger of its bytes over the memory rate and its operations over the
@@ -48,9 +63,14 @@ line, and {"ok": true, "device": {...}}.
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import textwrap
 import time
+from pathlib import Path
 
 N_SAMPLES = 1 << 17  # the kept-sample cap M of the headline config
 N_RENDER = 1 << 20   # model rows of one render chunk: 4096 rays x 256 samples
@@ -95,6 +115,13 @@ JAX_QUALITY_PSNR = 34.894
 QUALITY_PSNR_BAR = JAX_QUALITY_PSNR - 0.5
 EARLY_STEPS = 256 + 3072
 JAX_EARLY_PSNR = 30.34
+# Phase 8: the CLI on a blender-format scene at the flagship width.
+CLI_STEPS = 4096 + 256   # one validation render at 4096
+XOR_STEPS = 1024
+CLI_HW = 256
+CLI_PSNR_OVER_BG = 10.0  # dB over predicting the background everywhere
+CLI_TEST_RETEST = 0.5    # dB between the train task's test and --task test
+XOR_N_ENTRIES = 6_098_120
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -614,36 +641,13 @@ def run_headline(torch, Runner, ngp_synthetic_cfg, hash_nbr, fused_mlp):
     if launches["fwd"] <= 0 or launches["bwd"] <= 0:
         raise SystemExit(f"a kernel was not launched on the main path: "
                          f"{launches}")
-    pos, g = capture_step(runner, hash_nbr, HEADLINE_STEPS)
+    pos, g = capture_steps(runner, hash_nbr.HashEncode, HEADLINE_STEPS, 1)
     empty = g.abs().sum(dim=1) == 0
     print(f"captured step {HEADLINE_STEPS}: {pos.shape[0]} sample slots, "
           f"{int(empty.sum())} with a zero gradient row (empty slots), "
           f"{torch.unique(pos, dim=0).shape[0]} distinct positions",
           flush=True)
     return launches, (pos, g)
-
-
-def capture_step(runner, hash_nbr, step):
-    """Train step `step` with the encoder's backward wrapped, and return
-    the positions [M, 3] and the f32 upstream gradient [M, F*L] that
-    reached kernel B in it."""
-    got = []
-    orig = hash_nbr.HashEncode.__dict__["backward"]
-
-    def backward(ctx, g):
-        if not got:
-            got.append((ctx.saved_tensors[0].clone(),
-                        g.float().contiguous().clone()))
-        return orig.__func__(ctx, g)
-
-    hash_nbr.HashEncode.backward = staticmethod(backward)
-    try:
-        runner.train_range(step, step + 1)
-    finally:
-        hash_nbr.HashEncode.backward = orig
-    if not got:
-        raise SystemExit("the step did not reach the hash backward")
-    return got[0]
 
 
 def check_small_step(torch, Runner, ngp_synthetic_cfg, fused_mlp, pallas_mlp):
@@ -789,14 +793,258 @@ def run_quality(torch, Runner, ngp_synthetic_cfg, hash_nbr, fused_mlp,
     return launches
 
 
+def bf16_ulps(torch, a, b) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors (bit
+    patterns mapped to a line on which adjacent values differ by 1)."""
+    def line(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+def check_hash_xor(torch, hash_xor, hash_grid, name, spec, pos, g):
+    """Kernels F and B in xor mode against their twins on one set of
+    samples (pos [N, 3], f32 upstream gradient g [N, F*L]), with a random
+    table: the bf16 forward within FWD_ATOL and one bf16 ulp of the twin
+    (the JAX package's rounding), the f32 forward within FWD_ATOL, the
+    table gradient (bf16 products, and f32) within BWD_RTOL_OF_MAX of its
+    largest entry.  Times the bf16 kernels (the path's dtype) against their
+    twins, and kernel B beside the scatter alone."""
+    dev = pos.device
+    L, F = spec.n_levels, spec.n_features_per_level
+    n = pos.shape[0]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(2)
+    table = torch.randn((spec.n_entries, F), generator=gen, device=dev) * 0.1
+    fk = hash_xor.encode_xor_fwd(spec, table, pos, bf16)
+    fp = hash_grid.hash_encode_xor_plain(spec, table, pos, bf16)
+    fk32 = hash_xor.encode_xor_fwd(spec, table, pos)
+    fp32 = hash_grid.hash_encode_xor_plain(spec, table, pos)
+    torch.cuda.synchronize()
+    f_err = float((fk.float() - fp.float()).abs().max())
+    ulps = bf16_ulps(torch, fk, fp)
+    f32_err = float((fk32 - fp32).abs().max())
+    print(f"kernel F xor [{name}]: bf16 max abs err {f_err:.3e}, {ulps} ulp "
+          f"(tolerance abs {FWD_ATOL:g}, 1 ulp); f32 max abs err "
+          f"{f32_err:.3e}", flush=True)
+    if not (f_err <= FWD_ATOL and ulps <= 1 and f32_err <= FWD_ATOL):
+        raise SystemExit(f"kernel F (xor) disagrees with its twin at {name}")
+    del fk, fp, fk32, fp32
+    b_errs = {}
+    for rnd in (True, False):
+        bk = hash_xor.grad_table_xor(spec, pos, g, rnd)
+        bp = hash_grid.grad_table_xor_plain(spec, pos, g, rnd)
+        torch.cuda.synchronize()
+        err, top = float((bk - bp).abs().max()), float(bp.abs().max())
+        b_errs[rnd] = err
+        print(f"kernel B xor [{name}] ({'bf16' if rnd else 'f32'} products): "
+              f"max abs err {err:.3e}, rel to max {err / top:.3e} (tolerance "
+              f"{BWD_RTOL_OF_MAX:g} of max |ref| = {top:.4g})", flush=True)
+        if not err <= BWD_RTOL_OF_MAX * top:
+            raise SystemExit(f"kernel B (xor) disagrees with its twin at {name}")
+        del bk, bp
+    ms, plain_ms, (k1, k2, p1, p2) = time_pair(
+        lambda: hash_xor.encode_xor_fwd(spec, table, pos, bf16),
+        lambda: hash_grid.hash_encode_xor_plain(spec, table, pos, bf16))
+    idx, vals = hash_grid.xor_contributions(spec, pos, g, True)
+    rows = int(torch.unique(idx).numel())
+    fwd = dict(hash_fwd_work(n, L, F, rows, out_bytes=2), err=f_err, ulps=ulps,
+               f32_err=f32_err, ms=ms, plain_ms=plain_ms, library_ms=None)
+    print(f"time xor fwd [{name}], N={n}: kernel (bf16 out) {ms:.4f} ms "
+          f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, "
+          f"{p2:.4f}); bound {fwd['bound_ms']:.4f} ms ({rows} table rows "
+          "read)", flush=True)
+
+    def scatter():
+        acc = torch.zeros((spec.n_entries, F), dtype=torch.float32, device=dev)
+        return acc.index_put_((idx,), vals, accumulate=True)
+
+    ms, plain_ms, (k1, k2, p1, p2) = time_pair(
+        lambda: hash_xor.grad_table_xor(spec, pos, g, True),
+        lambda: hash_grid.grad_table_xor_plain(spec, pos, g, True))
+    lib_ms = (cuda_ms(scatter) + cuda_ms(scatter)) / 2
+    bwd = dict(hash_bwd_work(n, L, F, spec.n_entries), err=max(b_errs.values()),
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+    print(f"time xor bwd [{name}], N={n}: kernel {ms:.4f} ms ({k1:.4f}, "
+          f"{k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), the "
+          f"scatter alone (index_put_ accumulate) {lib_ms:.4f} ms; bound "
+          f"{bwd['bound_ms']:.4f} ms", flush=True)
+    del idx, vals, table
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def capture_steps(runner, fn_class, step, n_steps):
+    """Train steps [step, step + n_steps) with ``fn_class``'s backward
+    wrapped; returns the positions and the f32 upstream gradients that
+    reached it, concatenated over the steps."""
+    import torch
+
+    got = []
+    orig = fn_class.__dict__["backward"]
+
+    def backward(ctx, g):
+        got.append((ctx.saved_tensors[0].clone(),
+                    g.float().contiguous().clone()))
+        return orig.__func__(ctx, g)
+
+    fn_class.backward = staticmethod(backward)
+    try:
+        runner.train_range(step, step + n_steps)
+    finally:
+        fn_class.backward = orig
+    if len(got) != n_steps:
+        raise SystemExit(f"{n_steps} steps reached the hash backward "
+                         f"{len(got)} times")
+    return (torch.cat([p for p, _ in got]).contiguous(),
+            torch.cat([g for _, g in got]).contiguous())
+
+
+def cli_config(path, scene, log_dir, steps, indexing):
+    """A user's config: ngp_base.py with the data, log directory, step count
+    and hash indexing overridden."""
+    base = Path(__file__).resolve().parent / "projects/ngp/configs/ngp_base.py"
+    Path(path).write_text(textwrap.dedent(f"""\
+        _base_ = {str(base)!r}
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root_dir=dataset_dir),
+                       val=dict(root_dir=dataset_dir),
+                       test=dict(root_dir=dataset_dir))
+        log_dir = {log_dir!r}
+        tot_train_steps = {steps}
+        hash_indexing = {indexing!r}
+    """))
+    return path
+
+
+def background_psnr(torch, read_image, mse2psnr, scene, n_test):
+    """Mean over the test images of the PSNR of predicting the background
+    (ngp_base's black) everywhere, from the targets as the runner composes
+    them."""
+    out = []
+    for i in range(n_test):
+        img = read_image(os.path.join(scene, "test", f"r_{i}.png"))
+        target = img[..., :3] * img[..., 3:]
+        out.append(float(mse2psnr(torch.tensor(float((target ** 2).mean())))))
+    return sum(out) / len(out)
+
+
+def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, mse2psnr):
+    """Phase 8: the CLI's train and test tasks on a blender-format scene,
+    linear and xor; returns (per-mode results, the xor run's runner)."""
+    from jnerf_tpu_torch.dataset.dataset_util import read_image
+    from jnerf_tpu_torch.dataset.synthetic import make_synthetic_scene
+    from jnerf_tpu_torch.runner import Runner
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    counters = {"F": hash_nbr.encode_fwd, "B": hash_nbr.grad_table,
+                "F xor": hash_xor.encode_xor_fwd,
+                "B xor": hash_xor.grad_table_xor,
+                "D-MLP": fused_mlp.fused_density_mlp}
+    train_s = [0.0]
+    orig_range = Runner.train_range
+
+    def timed_range(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig_range(self, *a, **k)
+        torch.cuda.synchronize()
+        train_s[0] += time.perf_counter() - t0
+        return out
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    try:
+        scene = os.path.join(tmp, "scene")
+        t0 = time.perf_counter()
+        make_synthetic_scene(scene, n_train=24, n_val=2, n_test=4, H=CLI_HW,
+                             W=CLI_HW, device="cuda")
+        bg = background_psnr(torch, read_image, mse2psnr, scene, 4)
+        print(f"cli scene: 24 + 2 + 4 images of {CLI_HW}x{CLI_HW} written in "
+              f"{time.perf_counter() - t0:.3f} s; background-only test PSNR "
+              f"{bg:.3f} dB, on {card_line()}", flush=True)
+        results, xor_runner = {}, None
+        Runner.train_range = timed_range
+        for mode, steps in (("linear_rows", CLI_STEPS), ("xor", XOR_STEPS)):
+            logs = os.path.join(tmp, f"logs_{mode}")
+            cfg = cli_config(os.path.join(tmp, f"cfg_{mode}.py"), scene, logs,
+                             steps, mode)
+            argv = ["--config-file", cfg, "--device", "cuda"]
+            reset()
+            train_s[0] = 0.0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runner, psnr = run_net.main(argv + ["--task", "train"])
+            task_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            n_train = counts()
+            reset()
+            _, psnr_again = run_net.main(argv + ["--task", "test"])
+            n_test = counts()
+            spec = runner.model.pos_encoder.spec
+            out = os.path.join(logs, runner.exp_name)
+            pngs = [os.path.join(out, "test", f"{runner.exp_name}_{k}_{i}.png")
+                    for i in range(4) for k in ("r", "gt")]
+            if steps > runner.val_freq:
+                pngs += [os.path.join(out, f"img{runner.val_freq}.png")]
+            shapes = {read_image(p).shape for p in pngs}
+            print(f"cli {mode}: {steps} steps, table {spec.n_entries} entries "
+                  f"({len(spec.level_sizes)} levels, largest "
+                  f"{max(spec.level_sizes)}); train task {task_s:.3f} s, "
+                  f"steps {train_s[0]:.3f} s = {steps / train_s[0]:.3f} "
+                  f"steps/s, peak memory {peak / 2**20:.1f} MiB; TOTAL TEST "
+                  f"PSNR {psnr:.3f} dB (train task), {psnr_again:.3f} dB "
+                  f"(--task test); launches train {n_train}, test {n_test}; "
+                  f"{len(pngs)} PNGs decoded, shapes {sorted(shapes)}",
+                  flush=True)
+            if not os.path.isfile(os.path.join(out, "params.pkl")) \
+                    or shapes - {(CLI_HW, CLI_HW, 3), (CLI_HW, CLI_HW, 4)}:
+                raise SystemExit(f"cli {mode}: params.pkl or a PNG is missing "
+                                 "or wrong")
+            if not (psnr >= bg + CLI_PSNR_OVER_BG
+                    and psnr_again >= bg + CLI_PSNR_OVER_BG
+                    and abs(psnr_again - psnr) <= CLI_TEST_RETEST):
+                raise SystemExit(f"cli {mode}: test PSNR {psnr:.3f} / "
+                                 f"{psnr_again:.3f} dB against background "
+                                 f"{bg:.3f} dB")
+            used, unused = (("F xor", "B xor"), ("F", "B")) if mode == "xor" \
+                else (("F", "B"), ("F xor", "B xor"))
+            if n_train[used[1]] < steps or n_train[used[0]] < steps \
+                    or n_test[used[0]] <= 0 or n_test[used[1]] != 0 \
+                    or any(n_train[k] or n_test[k] for k in unused) \
+                    or n_train["D-MLP"] or n_test["D-MLP"]:
+                raise SystemExit(f"cli {mode}: the run did not go through its "
+                                 f"kernels: train {n_train}, test {n_test}")
+            results[mode] = dict(steps=steps, steps_per_s=steps / train_s[0],
+                                 task_s=task_s, peak_mib=peak / 2**20,
+                                 psnr=psnr, psnr_test_task=psnr_again,
+                                 bg_psnr=bg, train_launches=n_train,
+                                 test_launches=n_test)
+            if mode == "xor":
+                xor_runner = runner
+            del runner
+    finally:
+        Runner.train_range = orig_range
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return results, xor_runner
+
+
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
     names = ("hash_encode", "fused_mlp")
+    preludes = (cuda_lib.hash_prelude(), "")
     with ThreadPoolExecutor(len(names)) as pool:
-        libs = list(pool.map(cuda_lib.build, names))
+        libs = list(pool.map(cuda_lib.build, names, preludes))
     cuda_lib.hash_encode_lib()
     cuda_lib.fused_mlp_lib()
     print(f"built {', '.join(lib.name for lib in libs)} in "
@@ -831,11 +1079,15 @@ def kernel_row(name, source, replaces, launches, stats, shape, **extra):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     torch = require_cuda()
     from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
-    from jnerf_tpu_torch.ops import cuda_lib, fused_mlp, hash_nbr
+    from jnerf_tpu_torch.ops import (
+        cuda_lib, fused_mlp, hash_grid, hash_nbr, hash_xor,
+    )
     from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
     from jnerf_tpu_torch.runner import Runner
+    from jnerf_tpu_torch.tools import run_net
     from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -879,6 +1131,23 @@ def main() -> int:
                          pallas_mlp)
     quality_launches = run_quality(torch, Runner, ngp_synthetic_cfg, hash_nbr,
                                    fused_mlp, img2mse, mse2psnr)
+    cli, xor_runner = run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp,
+                              mse2psnr)
+    xspec = xor_runner.model.pos_encoder.spec
+    if xspec.n_entries != XOR_N_ENTRIES:
+        raise SystemExit(f"the xor table has {xspec.n_entries} entries, not "
+                         f"{XOR_N_ENTRIES}")
+    # Two steps' kept samples (2 x 2^16) of the trained xor field.
+    xor_pos, xor_g = capture_steps(xor_runner, hash_xor.HashEncodeXor,
+                                   XOR_STEPS, 2)
+    del xor_runner
+    xs = {"trained field": check_hash_xor(torch, hash_xor, hash_grid,
+                                          "trained field", xspec, xor_pos,
+                                          xor_g)}
+    n_xor = xor_pos.shape[0]
+    del xor_pos, xor_g
+    xs["uniform"] = check_hash_xor(torch, hash_xor, hash_grid, "uniform",
+                                   xspec, *uniform_samples(torch, xspec))
 
     head = "step f8l4@2^19"
     others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")
@@ -898,6 +1167,7 @@ def main() -> int:
             "product rounded to bf16, summed in f32)",
             fused_path_launches=fused_launches["hash_fwd"],
             quality_path_launches=quality_launches["fwd"],
+            cli_path_launches=cli["linear_rows"]["train_launches"]["F"],
             f32_ms=hs[head]["fwd"]["f32_ms"],
             **{k: {m: hs[k]["fwd"][m] for m in fwd_keys
                    + (("launches",) if k.startswith("render") else ())}
@@ -913,6 +1183,7 @@ def main() -> int:
             "contributions: the scatter alone",
             fused_path_launches=fused_launches["hash_bwd"],
             quality_path_launches=quality_launches["bwd"],
+            cli_path_launches=cli["linear_rows"]["train_launches"]["B"],
             **{k: {m: hs[k]["bwd"][m] for m in ("ms", "plain_ms", "bound_ms",
                                                 "library_ms")}
                for k in others}),
@@ -941,9 +1212,37 @@ def main() -> int:
             max_abs_err=mlp["den"]["err"], library=no_lib,
             **{f"N={N_RENDER}": {m: mlp["den"][N_RENDER][m]
                                  for m in ("ms", "plain_ms", "bound_ms")}}),
+        kernel_row(
+            "hash_encode_xor_fwd (kernel F, xor mode)",
+            "jnerf_tpu_torch/csrc/hash_encode.cu",
+            "jnerf_tpu/ops/hash_grid.py:186",
+            cli["xor"]["train_launches"]["F xor"], xs["trained field"]["fwd"],
+            f"two steps' {n_xor} kept samples of the trained xor field, "
+            "flagship xor table "
+            f"({XOR_N_ENTRIES} entries, 16 levels x 2), bf16 output",
+            max_abs_err=max(x["fwd"]["err"] for x in xs.values()),
+            max_bf16_ulps=max(x["fwd"]["ulps"] for x in xs.values()),
+            library=no_lib + " (a gather of bf16 rows, bf16 weights and "
+            "products, summed in f32)",
+            test_task_launches=cli["xor"]["test_launches"]["F xor"],
+            uniform={m: xs["uniform"]["fwd"][m]
+                     for m in ("ms", "plain_ms", "bound_ms")}),
+        kernel_row(
+            "hash_encode_xor_bwd (kernel B, xor mode)",
+            "jnerf_tpu_torch/csrc/hash_encode.cu",
+            "jnerf_tpu/ops/hash_grid.py:206",
+            cli["xor"]["train_launches"]["B xor"], xs["trained field"]["bwd"],
+            "the same samples and table, bf16 products summed in f32",
+            max_abs_err=max(x["bwd"]["err"] for x in xs.values()),
+            library="index_put_(accumulate=True) of the precomputed "
+            "contributions: the scatter alone",
+            uniform={m: xs["uniform"]["bwd"][m]
+                     for m in ("ms", "plain_ms", "bound_ms", "library_ms")}),
     ]
     for k in kernels:
         k["max_abs_err"] = float(k["max_abs_err"])
+    print(f"chip_smoke.py: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Hash-grid encode for Hopper (sm_90a): the forward gather ("kernel F")
-// and the table-gradient scatter ("kernel B") of the per-level linear hash.
+// and the table-gradient scatter ("kernel B") of the per-level linear hash
+// and of the reference's xor hash ("xor mode", at the end of this comment).
 //
 // Kernel F replaces the XLA gather + blend of
 // jnerf_tpu/ops/hash_nbr.py::_encode_from_nbr (:261-304), the counterpart
@@ -77,12 +78,51 @@
 //   master table first) and each weighted product to bf16 before the f32
 //   sum over corners; output is feature-major, column f*L + l;
 // - kernel B takes the upstream gradient in f32, as the Pallas kernels do.
+//
+// Xor mode (template parameter XOR / MODE) follows the JAX package's
+// reference-exact path, jnerf_tpu/ops/hash_grid.py:152-213, which XLA
+// computes as a gather and its autodiff scatter (no Pallas kernel):
+// - corner c of level l sits at pg_d = u32(floor(fmul_rn(x_d, scale) +
+//   0.5)) + c_d, the conversion saturating as XLA's (and PTX's) does; its
+//   entry is off_l + h % size_l with h = pg0 + pg1 res + pg2 res^2 on a
+//   dense level and h = JNERF_HASH(pg0, pg1, pg2) on a hashed one, all in
+//   uint32; its weight is (wd0 * wd1) * wd2, wd = frac or 1 - frac;
+// - JNERF_HASH is the config's hash_func, checked and rewritten as C by
+//   jnerf_tpu_torch/ops/hash_grid.py::_compile_hash_func and defined before
+//   this file is included (ops/cuda_lib.py builds one library per string),
+//   as the reference injects its hash string into its CUDA source;
+// - the forward in bf16: sum_c bf16(bf16(t) * bf16(w_c)) in f32, rounded
+//   to bf16 once; in f32 nothing is rounded, the table neither;
+// - kernel B adds each contribution as the JAX backward forms it
+//   (bf16(bf16(w_c) * g) in bf16 mode, w_c * g in f32) and sums in f32
+//   where the JAX backward sums in bf16: a deliberate deviation.
+// It shares the kernels' structure (warp per 32 samples at one level,
+// 16-byte row loads and reductions, peers summed in registers) and is not
+// tuned beyond that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define MAX_LEVELS 32
+
+// The xor mode's hash; ops/cuda_lib.py defines it from the config.
+#ifndef JNERF_HASH
+#define JNERF_HASH(p0, p1, p2) ((p0 ^ (p1 * 19349663u)) ^ (p2 * 83492791u))
+#endif
+
+// uint32 shifts as XLA computes them: by 32 or more they give 0.
+__device__ __forceinline__ uint32_t jn_shl(uint32_t a, uint32_t b) {
+  return b < 32u ? a << b : 0u;
+}
+__device__ __forceinline__ uint32_t jn_shr(uint32_t a, uint32_t b) {
+  return b < 32u ? a >> b : 0u;
+}
+
+__device__ __forceinline__ uint32_t xor_hash(uint32_t p0, uint32_t p1,
+                                             uint32_t p2) {
+  return (uint32_t)(JNERF_HASH(p0, p1, p2));
+}
 
 struct Levels {
   int n_levels;
@@ -94,6 +134,7 @@ struct Levels {
                                // size, else 0 => a real modulo
   uint32_t offset[MAX_LEVELS];
   uint32_t corner_off[MAX_LEVELS][8];
+  uint32_t hashed[MAX_LEVELS];  // xor mode: 1 => JNERF_HASH, 0 => dense
 };
 
 // Base entry e0 (level-local) and the per-axis corner factors
@@ -131,6 +172,39 @@ __device__ __forceinline__ int64_t corner_entry(const Levels& lv, int l,
 
 __device__ __forceinline__ float to_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Xor mode: corner 0's coordinates g and the fractions of the cell.
+__device__ __forceinline__ void xor_cell(const Levels& lv, int l,
+                                         const float* __restrict__ p,
+                                         uint32_t g[3], float fr[3]) {
+  const float s = lv.scale[l];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float q = __fadd_rn(__fmul_rn(p[d], s), 0.5f);
+    const float gq = floorf(q);
+    fr[d] = __fsub_rn(q, gq);
+    g[d] = __float2uint_rz(gq);  // saturates: < 0 -> 0, as XLA's convert
+  }
+}
+
+__device__ __forceinline__ float xor_weight(const float fr[3], int c) {
+  float wd[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+    wd[d] = ((c >> d) & 1) ? fr[d] : __fsub_rn(1.0f, fr[d]);
+  return __fmul_rn(__fmul_rn(wd[0], wd[1]), wd[2]);
+}
+
+__device__ __forceinline__ int64_t xor_entry(const Levels& lv, int l,
+                                             const uint32_t g[3], int c) {
+  const uint32_t p0 = g[0] + (c & 1), p1 = g[1] + ((c >> 1) & 1),
+                 p2 = g[2] + ((c >> 2) & 1);
+  const uint32_t h = lv.hashed[l] ? xor_hash(p0, p1, p2)
+                                  : p0 * lv.mult[l][0] + p1 * lv.mult[l][1] +
+                                        p2 * lv.mult[l][2];
+  const uint32_t m = lv.cmask[l];
+  return (int64_t)lv.offset[l] + (int64_t)(m ? (h & m) : (h % lv.size[l]));
 }
 
 // Both kernels run blocks of 8 warps over 32 * chunks consecutive samples;
@@ -189,7 +263,7 @@ __device__ __forceinline__ void store16(void* out, int64_t e,
 // sample each, write distinct banks).  The block then writes its rows, one
 // contiguous span of the feature-major output, as 16-byte stores of bf16
 // (each f32 sum rounded once) or f32.
-template <int F, bool BF16>
+template <int F, bool BF16, bool XOR>
 __global__ void __launch_bounds__(kThreads)
     hash_fwd_kernel(const float* __restrict__ pos,
                     const float* __restrict__ table, void* __restrict__ out,
@@ -204,22 +278,39 @@ __global__ void __launch_bounds__(kThreads)
     const int chunk = task / L, l = task - chunk * L;
     const int r = chunk * 32 + lane;
     if (r >= rows) continue;
-    float X[3][2];
-    const uint32_t e0 = cell(lv, l, pos + (s0 + r) * 3, X);
-    if (e0_out) e0_out[(s0 + r) * L + l] = (int32_t)e0;
-    float v[8][F];
+    float v[8][F], w[8];
+    if constexpr (XOR) {
+      uint32_t g[3];
+      float fr[3];
+      xor_cell(lv, l, pos + (s0 + r) * 3, g, fr);
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      load_row<F>(table + corner_entry(lv, l, e0, c) * F, v[c]);
+      for (int c = 0; c < 8; ++c) {
+        load_row<F>(table + xor_entry(lv, l, g, c) * F, v[c]);
+        w[c] = BF16 ? to_bf16(xor_weight(fr, c)) : xor_weight(fr, c);
+      }
+    } else {
+      float X[3][2];
+      const uint32_t e0 = cell(lv, l, pos + (s0 + r) * 3, X);
+      if (e0_out) e0_out[(s0 + r) * L + l] = (int32_t)e0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        load_row<F>(table + corner_entry(lv, l, e0, c) * F, v[c]);
+        w[c] = corner_weight(X, c);
+      }
+    }
     float acc[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const float w = corner_weight(X, c);
 #pragma unroll
-      for (int f = 0; f < F; ++f)
-        acc[f] = __fadd_rn(acc[f], to_bf16(__fmul_rn(to_bf16(v[c][f]), w)));
+      for (int f = 0; f < F; ++f) {
+        if constexpr (XOR && !BF16)
+          acc[f] = __fadd_rn(acc[f], __fmul_rn(v[c][f], w[c]));
+        else
+          acc[f] = __fadd_rn(acc[f],
+                             to_bf16(__fmul_rn(to_bf16(v[c][f]), w[c])));
+      }
     }
 #pragma unroll
     for (int f = 0; f < F; ++f) so[r * ld + f * L + l] = acc[f];
@@ -292,8 +383,8 @@ __device__ __forceinline__ bool reduce_peers(unsigned peers, float (&v)[F]) {
 
 // Kernel B.  g's rows for the block sit in shared memory with a row stride
 // of F*L + 1 words (odd: a warp's lanes, one sample each, read distinct
-// banks).
-template <int F>
+// banks).  MODE: 0 linear, 1 xor in f32, 2 xor in bf16.
+template <int F, int MODE>
 __global__ void __launch_bounds__(kThreads)
     hash_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ g,
                     float* __restrict__ grad, int n, int chunks, Levels lv) {
@@ -313,18 +404,31 @@ __global__ void __launch_bounds__(kThreads)
     const int r = chunk * 32 + lane;
     const bool live = r < rows;
     float X[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
-    float gv[F];
-    uint32_t e0 = 0;
-    if (live) e0 = cell(lv, l, pos + (s0 + r) * 3, X);
+    float gv[F], fr[3] = {0.0f, 0.0f, 0.0f};
+    uint32_t e0 = 0, gc[3] = {0u, 0u, 0u};
+    if (live) {
+      if constexpr (MODE == 0)
+        e0 = cell(lv, l, pos + (s0 + r) * 3, X);
+      else
+        xor_cell(lv, l, pos + (s0 + r) * 3, gc, fr);
+    }
 #pragma unroll
     for (int f = 0; f < F; ++f) gv[f] = live ? sg[r * ld + f * L + l] : 0.0f;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const float w = corner_weight(X, c);
-      const uint32_t entry = (uint32_t)corner_entry(lv, l, e0, c);
+      float w;
+      uint32_t entry;
+      if constexpr (MODE == 0) {
+        w = corner_weight(X, c);
+        entry = (uint32_t)corner_entry(lv, l, e0, c);
+      } else {
+        w = MODE == 2 ? to_bf16(xor_weight(fr, c)) : xor_weight(fr, c);
+        entry = (uint32_t)xor_entry(lv, l, gc, c);
+      }
       float v[F];
 #pragma unroll
-      for (int f = 0; f < F; ++f) v[f] = __fmul_rn(w, gv[f]);
+      for (int f = 0; f < F; ++f)
+        v[f] = MODE == 2 ? to_bf16(__fmul_rn(w, gv[f])) : __fmul_rn(w, gv[f]);
       const unsigned peers =
           __match_any_sync(0xffffffffu, live ? entry : 0xffffffffu);
       if (reduce_peers<F>(peers, v) && live)
@@ -336,31 +440,94 @@ __global__ void __launch_bounds__(kThreads)
 static bool fill_levels(Levels* lv, int L, const float* scales,
                         const uint32_t* mults, const uint32_t* sizes,
                         const uint32_t* masks, const uint32_t* offsets,
-                        const uint32_t* corner_offs) {
+                        const uint32_t* corner_offs, const uint32_t* hashed) {
   if (L < 1 || L > MAX_LEVELS) return false;
   lv->n_levels = L;
   for (int l = 0; l < L; ++l) {
     lv->scale[l] = scales[l];
     for (int d = 0; d < 3; ++d) lv->mult[l][d] = mults[l * 3 + d];
     lv->size[l] = sizes[l];
-    lv->mask[l] = masks[l];
+    lv->mask[l] = masks ? masks[l] : 0u;
     lv->cmask[l] = (sizes[l] & (sizes[l] - 1)) == 0 ? sizes[l] - 1 : 0;
     lv->offset[l] = offsets[l];
-    for (int c = 0; c < 8; ++c) lv->corner_off[l][c] = corner_offs[l * 8 + c];
+    for (int c = 0; c < 8; ++c)
+      lv->corner_off[l][c] = corner_offs ? corner_offs[l * 8 + c] : 0u;
+    lv->hashed[l] = hashed ? hashed[l] : 0u;
   }
   return true;
 }
 
-template <int F>
+template <int F, bool XOR>
 static void launch_fwd(bool bf16, int blocks, size_t smem, cudaStream_t st,
                        const float* p, const float* t, void* o, int32_t* e,
                        int n, int chunks, const Levels& lv) {
   if (bf16)
-    hash_fwd_kernel<F, true><<<blocks, kThreads, smem, st>>>(p, t, o, e, n,
-                                                             chunks, lv);
+    hash_fwd_kernel<F, true, XOR><<<blocks, kThreads, smem, st>>>(
+        p, t, o, e, n, chunks, lv);
   else
-    hash_fwd_kernel<F, false><<<blocks, kThreads, smem, st>>>(p, t, o, e, n,
-                                                              chunks, lv);
+    hash_fwd_kernel<F, false, XOR><<<blocks, kThreads, smem, st>>>(
+        p, t, o, e, n, chunks, lv);
+}
+
+// Kernel F in either mode; out is [n, F*L], bf16 when bf16, else f32.
+static int run_fwd(bool xor_mode, bool bf16, const void* pos,
+                   const void* table, void* out, void* e0_out, int n, int F,
+                   const Levels& lv, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)pos;
+  const float* t = (const float*)table;
+  int32_t* e = (int32_t*)e0_out;
+  const int L = lv.n_levels, chunks = chunks_for(L);
+  const int blocks = (int)(((int64_t)n + 32 * chunks - 1) / (32 * chunks));
+  const size_t smem = sizeof(float) * 32 * chunks * (F * L + 1);  // <= 33 KB
+#define JN_FWD(FF)                                                         \
+  (xor_mode ? launch_fwd<FF, true>(bf16, blocks, smem, st, p, t, out, e, n, \
+                                   chunks, lv)                             \
+            : launch_fwd<FF, false>(bf16, blocks, smem, st, p, t, out, e, n, \
+                                    chunks, lv))
+  switch (F) {
+    case 1: JN_FWD(1); break;
+    case 2: JN_FWD(2); break;
+    case 4: JN_FWD(4); break;
+    case 8: JN_FWD(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef JN_FWD
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+static void launch_bwd(int mode, int blocks, size_t smem, cudaStream_t st,
+                       const float* p, const float* g, float* o, int n,
+                       int chunks, const Levels& lv) {
+  if (mode == 0)
+    hash_bwd_kernel<F, 0><<<blocks, kThreads, smem, st>>>(p, g, o, n, chunks, lv);
+  else if (mode == 1)
+    hash_bwd_kernel<F, 1><<<blocks, kThreads, smem, st>>>(p, g, o, n, chunks, lv);
+  else
+    hash_bwd_kernel<F, 2><<<blocks, kThreads, smem, st>>>(p, g, o, n, chunks, lv);
+}
+
+// Kernel B in mode 0 (linear), 1 (xor, f32) or 2 (xor, bf16 products).
+static int run_bwd(int mode, const void* pos, const void* g, void* grad,
+                   int n, int F, const Levels& lv, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)pos;
+  const float* gg = (const float*)g;
+  float* o = (float*)grad;
+  const int L = lv.n_levels, chunks = chunks_for(L);
+  const int blocks = (int)(((int64_t)n + 32 * chunks - 1) / (32 * chunks));
+  const size_t smem = sizeof(float) * 32 * chunks * (F * L + 1);  // <= 33 KB
+  switch (F) {
+    case 1: launch_bwd<1>(mode, blocks, smem, st, p, gg, o, n, chunks, lv); break;
+    case 2: launch_bwd<2>(mode, blocks, smem, st, p, gg, o, n, chunks, lv); break;
+    case 4: launch_bwd<4>(mode, blocks, smem, st, p, gg, o, n, chunks, lv); break;
+    case 8: launch_bwd<8>(mode, blocks, smem, st, p, gg, o, n, chunks, lv); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // The level constants arrive as host arrays and travel to the kernel by
@@ -373,24 +540,11 @@ extern "C" int hash_encode_fwd(const void* pos, const void* table, void* out,
                                const uint32_t* offsets,
                                const uint32_t* corner_offs, void* stream) {
   Levels lv;
-  if (!fill_levels(&lv, L, scales, mults, sizes, masks, offsets, corner_offs))
+  if (!fill_levels(&lv, L, scales, mults, sizes, masks, offsets, corner_offs,
+                   nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* p = (const float*)pos;
-  const float* t = (const float*)table;
-  int32_t* e = (int32_t*)e0_out;
-  const int chunks = chunks_for(L);
-  const int blocks = (int)(((int64_t)n + 32 * chunks - 1) / (32 * chunks));
-  const size_t smem = sizeof(float) * 32 * chunks * (F * L + 1);  // <= 33 KB
-  switch (F) {
-    case 1: launch_fwd<1>(out_bf16, blocks, smem, st, p, t, out, e, n, chunks, lv); break;
-    case 2: launch_fwd<2>(out_bf16, blocks, smem, st, p, t, out, e, n, chunks, lv); break;
-    case 4: launch_fwd<4>(out_bf16, blocks, smem, st, p, t, out, e, n, chunks, lv); break;
-    case 8: launch_fwd<8>(out_bf16, blocks, smem, st, p, t, out, e, n, chunks, lv); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return run_fwd(false, out_bf16 != 0, pos, table, out, e0_out, n, F, lv,
+                 stream);
 }
 
 extern "C" int hash_encode_bwd(const void* pos, const void* g, void* grad,
@@ -399,22 +553,39 @@ extern "C" int hash_encode_bwd(const void* pos, const void* g, void* grad,
                                const uint32_t* masks, const uint32_t* offsets,
                                const uint32_t* corner_offs, void* stream) {
   Levels lv;
-  if (!fill_levels(&lv, L, scales, mults, sizes, masks, offsets, corner_offs))
+  if (!fill_levels(&lv, L, scales, mults, sizes, masks, offsets, corner_offs,
+                   nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* p = (const float*)pos;
-  const float* gg = (const float*)g;
-  float* o = (float*)grad;
-  const int chunks = chunks_for(L);
-  const int blocks = (int)(((int64_t)n + 32 * chunks - 1) / (32 * chunks));
-  const size_t smem = sizeof(float) * 32 * chunks * (F * L + 1);  // <= 33 KB
-  switch (F) {
-    case 1: hash_bwd_kernel<1><<<blocks, kThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
-    case 2: hash_bwd_kernel<2><<<blocks, kThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
-    case 4: hash_bwd_kernel<4><<<blocks, kThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
-    case 8: hash_bwd_kernel<8><<<blocks, kThreads, smem, st>>>(p, gg, o, n, chunks, lv); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return run_bwd(0, pos, g, grad, n, F, lv, stream);
+}
+
+// Xor mode.  mults[l] = (1, res, res^2 mod 2^32) on a dense level (unused on
+// a hashed one), hashed[l] = 1 on a hashed level.  out_bf16 / round_bf16:
+// the encoder's compute dtype is bf16.
+extern "C" int hash_encode_xor_fwd(const void* pos, const void* table,
+                                   void* out, int n, int L, int F,
+                                   int out_bf16, const float* scales,
+                                   const uint32_t* mults,
+                                   const uint32_t* sizes,
+                                   const uint32_t* offsets,
+                                   const uint32_t* hashed, void* stream) {
+  Levels lv;
+  if (!fill_levels(&lv, L, scales, mults, sizes, nullptr, offsets, nullptr,
+                   hashed))
+    return (int)cudaErrorInvalidValue;
+  return run_fwd(true, out_bf16 != 0, pos, table, out, nullptr, n, F, lv,
+                 stream);
+}
+
+extern "C" int hash_encode_xor_bwd(const void* pos, const void* g, void* grad,
+                                   int n, int L, int F, int round_bf16,
+                                   const float* scales, const uint32_t* mults,
+                                   const uint32_t* sizes,
+                                   const uint32_t* offsets,
+                                   const uint32_t* hashed, void* stream) {
+  Levels lv;
+  if (!fill_levels(&lv, L, scales, mults, sizes, nullptr, offsets, nullptr,
+                   hashed))
+    return (int)cudaErrorInvalidValue;
+  return run_bwd(round_bf16 ? 2 : 1, pos, g, grad, n, F, lv, stream);
 }

@@ -6,14 +6,21 @@ the port builds its datasets without importing the JAX package.  The
 scene definitions stay numpy; the ray tracing is float64 tensor code on
 the caller's device, with every sum written out in the order numpy takes
 it, so that on the CPU the plain scene's images equal the JAX package's bit
-for bit and the hard scene's within float64 rounding.  The on-disk scene
-writers are not ported.
+for bit and the hard scene's within float64 rounding.
+``make_synthetic_scene`` writes the plain scene to disk in blender format
+(jsons and PNGs), as the JAX package's writer does; the NeuS scene writer
+is not ported.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
+
+from .dataset_util import write_image
 
 # Scene definition in NeRF world space (cameras orbit at radius ~4).
 # Spheres: (center xyz, radius, rgb color)
@@ -183,3 +190,50 @@ def render_analytic(pose: np.ndarray, H: int, W: int,
         alpha = alpha.reshape(H, ssaa, W, ssaa).mean(dim=(1, 3))
         rgb = premul / torch.clamp(alpha[..., None], min=1e-8)
     return torch.cat([rgb, alpha[..., None]], dim=-1).float()
+
+
+def make_synthetic_scene(
+    out_dir: str,
+    n_train: int = 24,
+    n_val: int = 2,
+    n_test: int = 4,
+    H: int = 128,
+    W: int = 128,
+    camera_angle_x: float = 0.6911112070083618,
+    seed: int = 0,
+    device=None,
+) -> str:
+    """Write the plain scene to disk in blender format (the JAX package's
+    cameras for the same seed, images traced on ``device``); returns
+    out_dir."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+
+    def make_split(name, n, offset):
+        frames = []
+        os.makedirs(os.path.join(out_dir, name), exist_ok=True)
+        for i in range(n):
+            # Quasi-uniform orbit with jitter, elevation in [-25, 55] deg.
+            theta = 2 * np.pi * (i / n + offset) + rng.uniform(-0.05, 0.05)
+            phi = np.radians(rng.uniform(-25, 55))
+            eye = 4.0 * np.array(
+                [np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)]
+            )
+            pose = _look_at_pose(eye)
+            img = render_analytic(pose, H, W, camera_angle_x, device=device)
+            rel = f"{name}/r_{i}.png"
+            write_image(os.path.join(out_dir, rel), img.cpu().numpy())
+            pose4 = np.concatenate([pose, [[0, 0, 0, 1]]], axis=0)
+            frames.append(
+                {"file_path": rel[: -len(".png")], "transform_matrix": pose4.tolist()}
+            )
+        with open(os.path.join(out_dir, f"transforms_{name}.json"), "w") as f:
+            json.dump(
+                {"camera_angle_x": camera_angle_x, "aabb_scale": 1, "frames": frames},
+                f,
+            )
+
+    make_split("train", n_train, 0.0)
+    make_split("val", n_val, 0.37)
+    make_split("test", n_test, 0.11)
+    return out_dir

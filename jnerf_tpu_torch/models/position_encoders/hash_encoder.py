@@ -5,7 +5,9 @@ table ``grid`` [n_entries, F] is an f32 parameter; the encoding is cast to
 the owning network's compute dtype.  Every linear-hash indexing mode of the
 JAX package (``linear_rows``, ``linear_nbr``, ``linear_rows_xla``) computes
 the same encoding, so here all of them go to `ops.hash_nbr.hash_encode_nbr`
-(kernel F forward, kernel B backward on the card).
+(kernel F forward, kernel B backward on the card).  ``indexing='xor'``, the
+reference's hash at the reference's table sizes (no fast cap), goes to
+`ops.hash_xor.hash_encode_xor` (kernels F and B in xor mode).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 
 from jnerf_tpu_torch.ops.hash_grid import DEFAULT_HASH_FUNC, HashGridSpec
 from jnerf_tpu_torch.ops.hash_nbr import hash_encode_nbr
+from jnerf_tpu_torch.ops.hash_xor import hash_encode_xor
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.registry import ENCODERS
 
@@ -44,20 +47,19 @@ class HashEncoder(nn.Module):
             hash_func = cfg.hash_func or DEFAULT_HASH_FUNC
         if indexing is None:
             indexing = cfg.hash_indexing or "linear_rows"
-        if indexing == "xor":
-            raise NotImplementedError(
-                "hash_indexing='xor' is not ported yet (ROADMAP.md, port "
-                "queue: 'xor' hash indexing)")
-        if indexing not in LINEAR_INDEXING:
+        if indexing != "xor" and indexing not in LINEAR_INDEXING:
             raise ValueError(f"unknown hash indexing {indexing!r}")
         if n_pos_dims != 3:
             raise ValueError("the hash grid is 3-D")
         self.indexing = indexing
-        # Same hashed-level cap as the JAX package (its 8 MB neighbourhood
-        # rows per level), so a table has the same geometry in both;
-        # cfg.hashmap_fast_cap overrides it.
-        default_cap = (8 << 20) // (8 * n_features_per_level * 2)
-        fast_cap = int(cfg.hashmap_fast_cap or default_cap)
+        # The linear modes: the JAX package's hashed-level cap (its 8 MB
+        # neighbourhood rows per level), so a table has the same geometry in
+        # both; cfg.hashmap_fast_cap overrides it.  'xor' keeps the
+        # reference's sizes.
+        fast_cap = None
+        if indexing != "xor":
+            default_cap = (8 << 20) // (8 * n_features_per_level * 2)
+            fast_cap = int(cfg.hashmap_fast_cap or default_cap)
         self.spec = HashGridSpec(
             n_levels=n_levels,
             n_features_per_level=n_features_per_level,
@@ -77,4 +79,6 @@ class HashEncoder(nn.Module):
         self.grid.copy_(self.spec.init_table(generator))
 
     def forward(self, x):
+        if self.indexing == "xor":
+            return hash_encode_xor(self.spec, self.grid, x, self.compute_dtype)
         return hash_encode_nbr(self.spec, self.grid, x, self.compute_dtype)

@@ -4,9 +4,12 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so a build takes
 seconds.  Libraries go to ``build/jnerf_tpu_torch/`` under the checkout,
-named by a hash of the source and flags, so an edited source rebuilds and
-an unchanged one loads at once.  A missing ``nvcc`` or a failed build
-raises; there is no fallback.
+named by a hash of the source, the flags and a prelude of definitions,
+so an edited source rebuilds and an unchanged one loads at once.  The
+hash kernels' prelude defines the xor mode's hash (the config's
+``hash_func``): each distinct string builds its own library once, and the
+default string gives the same library on every run.  A missing ``nvcc``
+or a failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from .hash_grid import DEFAULT_HASH_FUNC, _compile_hash_func
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -38,20 +43,27 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists; returns the library path.  The compiler's report
+def build(name: str, prelude: str = "") -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source,
+    flags and ``prelude`` exists; returns the library path.  A prelude
+    (definitions the source reads) goes into a file under the build
+    directory that includes the source.  The compiler's report
     (``-Xptxas -v``: registers, spills) is kept beside it as ``.log``."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        + prelude.encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+    unit = src
+    if prelude:
+        unit = BUILD_DIR / f"{name}_{digest}.{os.getpid()}.cu"
+        unit.write_text(f'{prelude}\n#include "{src}"\n')
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(unit)],
         capture_output=True, text=True,
     )
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -69,16 +81,29 @@ _HASH_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
 # hash_encode_bwd(pos, g, grad, n, L, F, scales, mults, sizes, masks,
 #                 offsets, corner_offs, stream)
 _HASH_BWD_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
+# hash_encode_xor_{fwd,bwd}(pos, table | g, out | grad, n, L, F, bf16,
+#                           scales, mults, sizes, offsets, hashed, stream)
+_HASH_XOR_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+
+
+def hash_prelude(hash_func: str = DEFAULT_HASH_FUNC) -> str:
+    """hash_encode.cu's JNERF_HASH for a ``hash_func`` string (checked,
+    and rewritten as C, by `hash_grid._compile_hash_func`)."""
+    c_expr = _compile_hash_func(hash_func).c_expr
+    return f"#define JNERF_HASH(p0, p1, p2) {c_expr}"
 
 
 @functools.lru_cache(maxsize=None)
-def hash_encode_lib() -> ctypes.CDLL:
-    """The hash-encode kernels, built at first use."""
-    lib = ctypes.CDLL(str(build("hash_encode")))
-    lib.hash_encode_fwd.argtypes = _HASH_FWD_ARGS
-    lib.hash_encode_fwd.restype = ctypes.c_int
-    lib.hash_encode_bwd.argtypes = _HASH_BWD_ARGS
-    lib.hash_encode_bwd.restype = ctypes.c_int
+def hash_encode_lib(hash_func: str = DEFAULT_HASH_FUNC) -> ctypes.CDLL:
+    """The hash-encode kernels with the xor mode's hash ``hash_func``
+    (the linear mode reads no hash), built at first use."""
+    lib = ctypes.CDLL(str(build("hash_encode", hash_prelude(hash_func))))
+    for fn, args in ((lib.hash_encode_fwd, _HASH_FWD_ARGS),
+                     (lib.hash_encode_bwd, _HASH_BWD_ARGS),
+                     (lib.hash_encode_xor_fwd, _HASH_XOR_ARGS),
+                     (lib.hash_encode_xor_bwd, _HASH_XOR_ARGS)):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
 
 

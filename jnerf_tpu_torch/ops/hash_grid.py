@@ -1,4 +1,5 @@
-"""Multiresolution hash-grid geometry and the per-level linear hash.
+"""Multiresolution hash-grid geometry, the per-level linear hash and the
+reference's xor hash.
 
 `HashGridSpec` has the same fields and derived geometry as
 `jnerf_tpu/ops/hash_grid.py::HashGridSpec`, so a table trained by either
@@ -6,11 +7,26 @@ package reads the same in the other.  `level_multipliers` and
 `_corner_offsets` are copies of `jnerf_tpu/ops/hash_grid_rows.py:47-74`:
 they must draw from ``default_rng(0x5F3759DF)`` in the same order, or the
 hashed levels index a different table.
+
+The xor mode (``hash_indexing='xor'``, the reference's own hash, which
+reference checkpoints need) follows `jnerf_tpu/ops/hash_grid.py:39-213`:
+corner (c0, c1, c2) of level l sits at ``pg_d = u32(floor(x_d * scale_l +
+0.5)) + c_d`` (f32 -> uint32 saturates, as XLA converts), and its entry is
+``off_l + (pg0 + pg1 res + pg2 res^2) % size_l`` on a dense level
+(res^3 <= size_l), else ``off_l + HASH(pg0, pg1, pg2) % size_l`` with HASH
+the config's ``hash_func`` in uint32 arithmetic; its weight is
+``(wd0 * wd1) * wd2`` with ``wd = frac`` or ``1 - frac``.
+`hash_grid_indices` gives both; `hash_encode_xor_plain` and
+`grad_table_xor_plain` are the plain twins of kernels F and B in xor mode
+(`jnerf_tpu_torch/csrc/hash_encode.cu`).
 """
 
 from __future__ import annotations
 
+import ast
+import functools
 import math
+import operator
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -122,3 +138,208 @@ def level_masks(spec: HashGridSpec) -> Tuple[int, ...]:
         else:
             out.append(0)
     return tuple(out)
+
+
+# --------------------------------------------------------------- xor hash
+_U32 = 0xFFFFFFFF
+_HASH_OPS = {ast.BitXor: "^", ast.Mult: "*", ast.Add: "+", ast.BitAnd: "&",
+             ast.BitOr: "|", ast.LShift: "<<", ast.RShift: ">>"}
+# Python's own ints: how the JAX package folds a constant subexpression.
+_PY_OPS = {"^": operator.xor, "*": operator.mul, "+": operator.add,
+           "&": operator.and_, "|": operator.or_, "<<": operator.lshift,
+           ">>": operator.rshift}
+
+
+def _mul32(a, b):
+    """a * b mod 2^32 for int64 tensors (or ints) in [0, 2^32), without
+    int64 overflow: the high half of a multiplies b separately."""
+    lo = (a & 0xFFFF) * b
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _apply_op(op: str, a, b):
+    """One uint32 operation, as XLA computes it on uint32 arrays (shifts by
+    32 or more give 0), on int64 tensors in [0, 2^32) (or Python ints, save
+    for shifts)."""
+    if op == "^":
+        return a ^ b
+    if op == "&":
+        return a & b
+    if op == "|":
+        return a | b
+    if op == "+":
+        return (a + b) & _U32
+    if op == "*":
+        return _mul32(a, b)
+    b = torch.as_tensor(b)
+    amt = torch.clamp(b, max=31)
+    shifted = (a << amt) & _U32 if op == "<<" else a >> amt
+    return torch.where(b < 32, shifted, torch.zeros_like(shifted))
+
+
+@dataclass(frozen=True)
+class HashFunc:
+    """A validated ``hash_func`` string: ``tree`` is its expression as
+    nested (op, left, right) tuples over "p0", "p1", "p2" and ints in
+    [0, 2^32); ``c_expr`` is the same expression as CUDA C over uint32_t
+    (every operation parenthesized, literals with a u suffix, shifts through
+    jn_shl / jn_shr, which give 0 for 32 or more, as XLA does)."""
+
+    expr: str
+    tree: object
+    c_expr: str
+
+    def __call__(self, p0, p1, p2):
+        env = {"p0": p0, "p1": p1, "p2": p2}
+
+        def ev(node):
+            if isinstance(node, str):
+                return env[node]
+            if isinstance(node, int):
+                return node
+            op, a, b = node
+            return _apply_op(op, ev(a), ev(b))
+
+        out = ev(self.tree)
+        if isinstance(out, int) and torch.is_tensor(p0):
+            return torch.full_like(p0, out)
+        return out
+
+
+@functools.lru_cache(maxsize=32)
+def _compile_hash_func(expr: str) -> HashFunc:
+    """Parse and check the config's C hash expression.  It may hold only
+    p0, p1, p2, integer literals, ``^ * + & | << >>`` and parentheses, to
+    which Python and C give the same precedence; constant subexpressions
+    are folded and must lie in [0, 2^32), where the JAX package's uint32
+    arithmetic agrees with C's.  Anything else raises ValueError."""
+    try:
+        root = ast.parse(expr, mode="eval").body
+    except SyntaxError as e:
+        raise ValueError(f"hash_func {expr!r} does not parse: {e.msg}") from None
+
+    def build(node):
+        if isinstance(node, ast.Name) and node.id in ("p0", "p1", "p2"):
+            return node.id
+        if isinstance(node, ast.Constant) and type(node.value) is int:
+            val = node.value
+        elif isinstance(node, ast.BinOp) and type(node.op) in _HASH_OPS:
+            op = _HASH_OPS[type(node.op)]
+            a, b = build(node.left), build(node.right)
+            if not (isinstance(a, int) and isinstance(b, int)):
+                return (op, a, b)
+            val = _PY_OPS[op](a, b)
+        else:
+            raise ValueError(
+                f"hash_func {expr!r}: {ast.unparse(node)!r} is not allowed; "
+                "use p0, p1, p2, integer literals, ^ * + & | << >> and "
+                "parentheses")
+        if not 0 <= val <= _U32:
+            raise ValueError(f"hash_func {expr!r}: the constant {val} is "
+                             "outside [0, 2^32)")
+        return val
+
+    def emit(node):
+        if isinstance(node, str):
+            return node
+        if isinstance(node, int):
+            return f"{node}u"
+        op, a, b = node
+        if op in ("<<", ">>"):
+            fn = "jn_shl" if op == "<<" else "jn_shr"
+            return f"{fn}({emit(a)}, {emit(b)})"
+        return f"({emit(a)} {op} {emit(b)})"
+
+    tree = build(root)
+    return HashFunc(expr=expr, tree=tree, c_expr=emit(tree))
+
+
+def xor_level_consts(spec: HashGridSpec):
+    """Per level of the xor mode: (scale f32, res, size, offset, hashed);
+    a level is hashed where res^3 exceeds its size."""
+    return [(np.float32(spec.scales[lvl]), spec.resolutions[lvl],
+             spec.level_sizes[lvl], spec.level_offsets[lvl],
+             spec.resolutions[lvl] ** 3 > spec.level_sizes[lvl])
+            for lvl in range(spec.n_levels)]
+
+
+def hash_grid_indices(spec: HashGridSpec, pos: torch.Tensor):
+    """Corner entries and trilinear weights of the xor mode.
+
+    pos: [N, 3] float32 warped positions.  Returns idx [N, L*8] int32
+    (entries into the flat table, level-major, corner c at bit d of c along
+    axis d) and weights [N, L*8] float32, as
+    `jnerf_tpu/ops/hash_grid.py::hash_grid_indices`."""
+    hash_fn = _compile_hash_func(spec.hash_func)
+    idx, wts = [], []
+    for scale, res, size, offset, hashed in xor_level_consts(spec):
+        g, fr = [], []
+        for d in range(3):
+            q = pos[:, d] * float(scale) + 0.5
+            gq = torch.floor(q)
+            fr.append(q - gq)
+            g.append(gq.to(torch.int64).clamp_(0, _U32))
+        for c in range(8):
+            bits = [(c >> d) & 1 for d in range(3)]
+            pg = [(g[d] + bits[d]) & _U32 for d in range(3)]
+            if hashed:
+                h = hash_fn(*pg)
+            else:
+                h = (pg[0] + _mul32(pg[1], res)
+                     + _mul32(_mul32(pg[2], res), res)) & _U32
+            idx.append(h % size + offset)
+            wd = [fr[d] if bits[d] else 1.0 - fr[d] for d in range(3)]
+            wts.append((wd[0] * wd[1]) * wd[2])
+    return (torch.stack(idx, dim=1).to(torch.int32),
+            torch.stack(wts, dim=1))
+
+
+def hash_encode_xor_plain(spec: HashGridSpec, table: torch.Tensor,
+                          pos: torch.Tensor, compute_dtype=None):
+    """Plain twin of kernel F in xor mode: [N, 3] -> [N, F*L]
+    feature-major, in ``compute_dtype``.  bf16: bf16(sum_c bf16(bf16(t) *
+    bf16(w_c))), the 8 products summed in f32 (corner order) and rounded
+    once; None or float32: f32 throughout."""
+    L, F = spec.n_levels, spec.n_features_per_level
+    n = pos.shape[0]
+    idx, w = hash_grid_indices(spec, pos)
+    bf16 = compute_dtype == torch.bfloat16
+    tbl = table.to(torch.bfloat16).float() if bf16 else table.float()
+    if bf16:
+        w = w.to(torch.bfloat16).float()
+    rows = tbl[idx.long()].reshape(n, L, 8, F)
+    w = w.reshape(n, L, 8, 1)
+    acc = torch.zeros((n, L, F), dtype=torch.float32, device=pos.device)
+    for c in range(8):
+        prod = rows[:, :, c] * w[:, :, c]
+        acc = acc + (prod.to(torch.bfloat16).float() if bf16 else prod)
+    out = acc.permute(0, 2, 1).reshape(n, F * L)
+    return out.to(torch.bfloat16) if bf16 else out
+
+
+def xor_contributions(spec: HashGridSpec, pos: torch.Tensor, g: torch.Tensor,
+                      bf16: bool):
+    """The table-gradient terms of the xor mode: entries [N*L*8] (int64)
+    and values [N*L*8, F] f32, each ``w_c * g[n, f*L + l]`` formed as the
+    JAX backward forms it: bf16(bf16(w_c) * g) in bf16 mode, else f32."""
+    L, F = spec.n_levels, spec.n_features_per_level
+    n = pos.shape[0]
+    idx, w = hash_grid_indices(spec, pos)
+    if bf16:
+        w = w.to(torch.bfloat16).float()
+    gl = g.float().reshape(n, F, L).permute(0, 2, 1)  # [N, L, F]
+    vals = w.reshape(n, L, 8, 1) * gl[:, :, None, :]
+    if bf16:
+        vals = vals.to(torch.bfloat16).float()
+    return idx.reshape(-1).long(), vals.reshape(-1, F)
+
+
+def grad_table_xor_plain(spec: HashGridSpec, pos: torch.Tensor,
+                         g: torch.Tensor, bf16: bool):
+    """Plain twin of kernel B in xor mode: dL/dtable [n_entries, F] f32,
+    the contributions of `xor_contributions` summed in f32."""
+    idx, vals = xor_contributions(spec, pos, g, bf16)
+    grad = torch.zeros((spec.n_entries, spec.n_features_per_level),
+                       dtype=torch.float32, device=pos.device)
+    return grad.index_add_(0, idx, vals)

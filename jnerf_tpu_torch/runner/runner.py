@@ -15,8 +15,11 @@ The rendering half is ported too: ``render_img``, ``render_img_with_pose``,
 without a background term and add the run's background colour after.  The
 inference jitter is one [chunk] draw per image, used for every chunk (the
 JAX package's one key per image), from the runner's generator unless
-given.  Images are written only by ``save_img``, which imports PIL when it
-is called.
+given.  Images are written by ``save_img`` through the port's own PNG
+encoder (`dataset/dataset_util.py`), so ``train``, ``val_img`` and
+``test`` need no imaging library.  ``render`` writes the spherical demo
+path as an mp4 with cv2, imported when it is called, as in the JAX
+package.
 
 Checkpoints (``save_ckpt``, ``load_ckpt``, ``cfg.load_ckpt``, the
 ``params.pkl`` that ``train`` writes before ``test``) keep the JAX
@@ -26,7 +29,7 @@ shadow are JAX params trees (`utils/convert.py`), and ``nested_optimizer``
 is the Adam state as a plain dict ``{"count", "mu", "nu"}`` with the
 moments in the same tree.  ``load_ckpt`` also reads the JAX runner's
 checkpoints, whose Adam state is optax's (found by its field names; that
-needs optax to unpickle).  The mp4 ``render`` task is not ported yet.
+needs optax to unpickle).
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ import pickle
 import numpy as np
 import torch
 
+from jnerf_tpu_torch.dataset import camera_path
 from jnerf_tpu_torch.dataset.dataset import rays_from_pixels
+from jnerf_tpu_torch.dataset.dataset_util import write_image
 from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
 from jnerf_tpu_torch.ops.compact import compact_indices, render_rays_compact
 from jnerf_tpu_torch.ops.composite import density_l1_reg, render_rays
@@ -61,6 +66,11 @@ DENSITY_L1_COEF = 1e-4 / 384.0
 
 
 class Runner:
+    # A validation render every val_freq steps of train(); rays per render
+    # chunk.  Class attributes, so that a caller may lower them for a run.
+    val_freq = 4096
+    render_chunk_rays = 4096
+
     def __init__(self, device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -99,13 +109,11 @@ class Runner:
         self.background_color = torch.tensor(
             cfg.background_color or [0, 0, 0], dtype=torch.float32)
         self.alpha_image = bool(cfg.alpha_image)
-        self.val_freq = 4096
         # Created when an image is first written, not here.
         self.save_path = os.path.join(cfg.log_dir or "./logs", self.exp_name)
         self.ckpt_path = cfg.ckpt_path or os.path.join(self.save_path,
                                                        "params.pkl")
         self.W, self.H = (int(v) for v in self.dataset["train"].resolution)
-        self.render_chunk_rays = 4096
         # Picks the image of render_img(img_id=None).
         self._img_rng = np.random.default_rng(seed)
 
@@ -186,15 +194,16 @@ class Runner:
         return main.detach()
 
     # ------------------------------------------------------- window training
-    def train_range(self, start: int, end: int):
+    def train_range(self, start: int, end: int, tick=None):
         """Train steps [start, end) with grid refreshes and batch adaptation.
 
         A refresh runs when ``i % update_den_freq == 0``; the steps up to
         the next refresh form a window of one shape.  At each window's end
         the batch shape adapts to the PREVIOUS window's measured demand,
         whose device-to-host copy finished while this window ran, so the
-        host never waits for the device there.  Returns the last step's
-        main loss.
+        host never waits for the device there.  ``tick(n, n_rays,
+        n_samples_per_ray)``, if given, is called after each window's
+        steps are enqueued.  Returns the last step's main loss.
         """
         freq = self.sampler.update_den_freq
         loss = None
@@ -210,6 +219,9 @@ class Runner:
             for _ in range(n):
                 loss = self.train_step()
             i += n
+            if tick is not None:
+                tick(n, self.sampler.n_rays_per_batch,
+                     self.sampler.n_samples_per_ray)
             if i % freq == 0:
                 if self._pending_adapt is not None:
                     host, event, n_then, rays_then = self._pending_adapt
@@ -240,23 +252,33 @@ class Runner:
     def train(self):
         """Train from ``start`` to ``tot_train_steps``, printing one plain
         line every ``update_den_freq * 16`` steps, with the PSNR of a
-        validation render every ``val_freq`` steps; then save
-        ``<save_path>/params.pkl`` and render and score the test set."""
+        validation render every ``val_freq`` steps and the throughput over
+        the last 256 steps (`utils.metrics.ThroughputMeter`, host clock);
+        then save ``<save_path>/params.pkl`` and render and score the test
+        set; returns ``test()``'s mean PSNR."""
+        from jnerf_tpu_torch.utils.metrics import ThroughputMeter
+
+        meter = ThroughputMeter(window=256)
+
+        def tick(n, n_rays, n_samples_per_ray):
+            for _ in range(n):
+                meter.tick(n_rays=n_rays, n_samples=n_rays * n_samples_per_ray)
+
         every = self.sampler.update_den_freq * 16
         i = self.start
         while i < self.tot_train_steps:
             seg_end = min(self.tot_train_steps, (i // every + 1) * every,
                           (i // self.val_freq + 1) * self.val_freq)
-            loss = self.train_range(i, seg_end)
+            loss = self.train_range(i, seg_end, tick=tick)
             i = seg_end
             line = (f"STEP={i} | LOSS={float(loss):.5f} | "
                     f"RAYS={self.sampler.n_rays_per_batch} | "
                     f"SAMPLES/RAY={self.sampler.n_samples_per_ray}")
             if i % self.val_freq == 0 and i < self.tot_train_steps:
                 line += f" | VAL PSNR={float(mse2psnr(self.val_img(i))):.3f}"
-            print(line, flush=True)
+            print(f"{line} | {meter.summary()}", flush=True)
         self.save_ckpt(os.path.join(self.save_path, "params.pkl"))
-        self.test()
+        return self.test()
 
     # ------------------------------------------------------------------- test
     def test(self, load_ckpt=False):
@@ -427,15 +449,37 @@ class Runner:
         self.save_img(os.path.join(self.save_path, f"target{it}.png"), img_tar)
         return img2mse(torch.from_numpy(img), torch.from_numpy(img_tar))
 
+    def render(self, load_ckpt=True, save_path=None):
+        """Render the spherical demo path (`dataset/camera_path.py`) into
+        an mp4 at 28 fps (``<save_path>/demo.mp4`` unless given), after
+        loading ``ckpt_path`` if ``load_ckpt``; returns the file's path.
+        Imports cv2, which the card's machine lacks (ROADMAP)."""
+        if load_ckpt:
+            assert os.path.exists(self.ckpt_path), self.ckpt_path
+            self.load_ckpt(self.ckpt_path)
+        if not save_path:
+            save_path = os.path.join(self.save_path, "demo.mp4")
+        assert save_path.endswith(".mp4")
+        import cv2
+
+        os.makedirs(os.path.dirname(os.path.abspath(save_path)), exist_ok=True)
+        fps = 28
+        writer = cv2.VideoWriter(
+            save_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (self.W, self.H)
+        )
+        for pose in camera_path.path_spherical():
+            img = self.render_img_with_pose(pose)
+            frame = (img * 255 + 0.5).clip(0, 255).astype("uint8")
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        writer.release()
+        return save_path
+
     @staticmethod
     def save_img(path, img, alpha=None):
         """Write an [H, W, 3] image (with alpha, RGBA) in [0, 1] as PNG."""
-        from PIL import Image
-
         if alpha is not None:
             img = np.concatenate([img, alpha], axis=-1)
-        arr = (np.asarray(img) * 255 + 0.5).clip(0, 255).astype(np.uint8)
-        Image.fromarray(arr).save(path)
+        write_image(path, img)
 
 
 def _adam_state(state):

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from jnerf_tpu_torch.ops import fused_mlp, hash_nbr
+from jnerf_tpu_torch.ops import fused_mlp, hash_grid, hash_nbr, hash_xor
 from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
 
 pytestmark = pytest.mark.cuda
@@ -287,3 +287,108 @@ def test_fused_wrappers_refuse_bad_inputs(dev):
         fused_mlp.fused_density_mlp(ws[0], ws[1], x.cpu().to(dev)[:-1].T)
     with pytest.raises(ValueError):
         fused_mlp.fused_mlp_fwd(ws[:4] + [ws[0]], x, d)
+
+
+# Xor mode at the reference's sizes: dense levels with a real modulo,
+# power-of-two hashed levels, a non-power-of-two cap, F in {1, 2, 4, 8}.
+XOR_SPECS = {
+    "f2l16@2^12": dict(n_levels=16, n_features_per_level=2,
+                       log2_hashmap_size=12),
+    "f1l8": dict(n_levels=8, n_features_per_level=1, log2_hashmap_size=12,
+                 base_resolution=4, desired_resolution=512.0),
+    "f4l8cap3000": dict(n_levels=8, n_features_per_level=4,
+                        log2_hashmap_size=13, base_resolution=4,
+                        desired_resolution=512.0, max_level_size=3000),
+    "f8l4": dict(n_levels=4, n_features_per_level=8, log2_hashmap_size=13,
+                 base_resolution=4, desired_resolution=256.0),
+}
+CUSTOM_HASH = "(p0 * 73856093) ^ (p1 << 5) + (p2 >> 1) * 19349663 | 7"
+
+
+def _bf16_ulps(a, b):
+    def line(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+@pytest.mark.parametrize("hash_func", ["default", "custom"])
+@pytest.mark.parametrize("name", list(XOR_SPECS))
+def test_xor_kernels_match_plain(dev, name, hash_func):
+    """Kernels F and B in xor mode against their twins, on positions in and
+    just outside [0, 1] (where the f32 -> uint32 conversion saturates) and
+    on cell borders, with the default hash and a custom one (its own
+    library): the bf16 forward within one bf16 ulp and 1e-3, the f32
+    forward within 1e-3, the table gradient (bf16 products and f32) within
+    1e-5 of its largest entry, at a ragged N."""
+    kw = dict(XOR_SPECS[name])
+    if hash_func == "custom":
+        kw["hash_func"] = CUSTOM_HASH
+    spec = HashGridSpec(**kw)
+    table, pos, g = _inputs(spec, dev, n=5003)
+    pos[-300:] = pos[-300:] * 1.2 - 0.1
+    for dtype in (torch.bfloat16, torch.float32):
+        got = hash_xor.encode_xor_fwd(spec, table, pos, dtype)
+        ref = hash_grid.hash_encode_xor_plain(spec, table, pos, dtype)
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert float((got.float() - ref.float()).abs().max()) <= 1e-3
+        if dtype == torch.bfloat16:
+            assert _bf16_ulps(got, ref) <= 1
+    for rnd in (True, False):
+        got = hash_xor.grad_table_xor(spec, pos, g, rnd)
+        ref = hash_grid.grad_table_xor_plain(spec, pos, g, rnd)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_xor_flagship_table_on_clustered_samples(dev):
+    """The flagship xor table (6,098,120 entries) on 2^17 samples in runs
+    along rays: the kernels against their twins, as above."""
+    spec = HashGridSpec(n_levels=16, n_features_per_level=2,
+                        log2_hashmap_size=19)
+    assert spec.n_entries == 6_098_120
+    n = 1 << 17
+    pos = _clustered(n, dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    table = torch.randn((spec.n_entries, 2), generator=gen, device=dev) * 0.1
+    g = torch.randn((n, 32), generator=gen, device=dev)
+    got = hash_xor.encode_xor_fwd(spec, table, pos, torch.bfloat16)
+    ref = hash_grid.hash_encode_xor_plain(spec, table, pos, torch.bfloat16)
+    assert _bf16_ulps(got, ref) <= 1
+    got = hash_xor.grad_table_xor(spec, pos, g, True)
+    ref = hash_grid.grad_table_xor_plain(spec, pos, g, True)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_xor_autograd_goes_through_both_kernels(dev):
+    """The xor autograd.Function launches kernel F forward and kernel B
+    backward (and no linear kernel), with the twin's gradient on the
+    upstream gradient that reaches it."""
+    spec = HashGridSpec(**XOR_SPECS["f8l4"])
+    table, pos, _ = _inputs(spec, dev)
+    counts = (hash_xor.encode_xor_fwd.launches, hash_xor.grad_table_xor.launches,
+              hash_nbr.encode_fwd.launches, hash_nbr.grad_table.launches)
+    tab = table.clone().requires_grad_(True)
+    out = hash_xor.hash_encode_xor(spec, tab, pos, torch.bfloat16)
+    torch.sin(out.float()).sum().backward()
+    assert (hash_xor.encode_xor_fwd.launches, hash_xor.grad_table_xor.launches,
+            hash_nbr.encode_fwd.launches, hash_nbr.grad_table.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    g = torch.cos(out.detach().float()).to(torch.bfloat16).float()
+    ref = hash_grid.grad_table_xor_plain(spec, pos, g, True)
+    assert float((tab.grad - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_xor_wrappers_refuse_bad_inputs(dev):
+    """As the linear wrappers: a CUDA tensor the kernel cannot take
+    raises."""
+    spec = HashGridSpec(**XOR_SPECS["f2l16@2^12"])
+    table, pos, g = _inputs(spec, dev)
+    with pytest.raises(ValueError):
+        hash_xor.encode_xor_fwd(spec, table.double(), pos)
+    with pytest.raises(ValueError):
+        hash_xor.encode_xor_fwd(spec, table, pos, torch.float16)
+    with pytest.raises(ValueError):
+        hash_xor.grad_table_xor(spec, pos, g[:, :3].contiguous(), True)

@@ -227,7 +227,10 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 
 def test_hash_encoder_module(both_cfgs):
-    """HashEncoder keeps the JAX fast-cap default and refuses 'xor'."""
+    """HashEncoder keeps the JAX fast-cap default in the linear modes and
+    the reference's sizes in 'xor' (the flagship encoder's 6,098,120
+    entries: five dense levels, then eleven of 2^19); it refuses an unknown
+    mode."""
     from jnerf_tpu_torch.models.position_encoders import HashEncoder
 
     enc = HashEncoder(n_levels=4, n_features_per_level=2, log2_hashmap_size=19)
@@ -237,5 +240,10 @@ def test_hash_encoder_module(both_cfgs):
     both_cfgs[1].hashmap_fast_cap = 1 << 19
     assert max(HashEncoder(n_levels=4, n_features_per_level=8,
                            log2_hashmap_size=19).spec.level_sizes) == 1 << 19
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HashEncoder(indexing="xor")
+    xor = HashEncoder(indexing="xor")
+    assert xor.spec.n_entries == 6_098_120 and xor.spec.max_level_size is None
+    assert xor.spec.level_sizes[5:] == (1 << 19,) * 11
+    both_cfgs[1].hashmap_fast_cap = None
+    assert HashEncoder().spec.n_entries == 3_214_536
+    with pytest.raises(ValueError, match="unknown hash indexing"):
+        HashEncoder(indexing="morton")

@@ -10,23 +10,12 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
-import optax
 
 from torch_parity import (  # noqa: F401
-    both_cfgs, jax_key_draws, n, port_grid_state, t,
+    assert_one_step_matches, both_cfgs, port_grid_state,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _grad_capture():
-    """An optax transform that applies no update and keeps the gradients
-    it was given in its state, so the JAX step's gradients can be read."""
-    return optax.GradientTransformation(
-        init=lambda p: {"g": jax.tree.map(jnp.zeros_like, p)},
-        update=lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), {"g": g}),
-    )
 
 
 @pytest.mark.parametrize("pallas_mlp", [False, True])
@@ -47,9 +36,7 @@ def test_one_step_loss_and_grads_match_jax(both_cfgs, pallas_mlp):
     max |diff| <= 2e-2 and mean |diff| <= 1e-3 of its largest entry."""
     from jnerf_tpu.runner import Runner as JaxRunner
     from jnerf_tpu_torch.runner import Runner
-    from jnerf_tpu_torch.utils.convert import (
-        jax_params_to_state_dict, state_dict_to_jax_params,
-    )
+    from jnerf_tpu_torch.utils.convert import jax_params_to_state_dict
 
     shape = (256, 32)
     if pallas_mlp:
@@ -59,42 +46,14 @@ def test_one_step_loss_and_grads_match_jax(both_cfgs, pallas_mlp):
                        target_batch_size=1 << 14)
     jr = JaxRunner()
     jr._update_grid(0, jax.random.PRNGKey(1))
-    jr.tx, jr.ema = _grad_capture(), None
     tr = Runner(device="cpu")
     tr.model.load_state_dict(
         jax_params_to_state_dict(jax.tree.map(np.asarray, jr.params)))
     tr.sampler.load_state_dict(port_grid_state(jr.sampler.state))
-
-    n_rays, n_samples = jr.sampler.n_rays_per_batch, jr.sampler.n_samples_per_ray
-    assert (n_rays, n_samples) == (tr.sampler.n_rays_per_batch,
-                                   tr.sampler.n_samples_per_ray) == shape
     assert jr.model._fused_ok == tr.model._fused_ok == pallas_mlp
-    assert n_rays * n_samples > tr.sampler.compacted_batch  # compaction on
-    step = jax.jit(jr._step_fn_body(n_rays, n_samples))
-    key = jax.random.PRNGKey(7)
-    _, opt_state, _, _, jloss = step(jr.params, jr.tx.init(jr.params), None,
-                                     jr.sampler.state, jr._train_data(), key)
-
-    ds = tr.dataset["train"]
-    idx, u, bg = jax_key_draws(key, n_rays, ds.n_images * ds.H * ds.W)
-    total, main, samples = tr.forward_loss(n_rays, n_samples,
-                                           idx=t(idx, torch.int64), bg=t(bg),
-                                           u=t(u))
-    assert int(samples.valid.sum()) > tr.sampler.compacted_batch
-    np.testing.assert_allclose(float(main.detach()), float(jloss), rtol=1e-3)
-    total.backward()
-    jgrads = state_dict_to_jax_params(
-        jax_params_to_state_dict(jax.tree.map(np.asarray, opt_state["g"])))
-    grads = state_dict_to_jax_params(
-        {name: p.grad for name, p in tr.model.named_parameters()})
-    for (path, got), ref in zip(jax.tree_util.tree_leaves_with_path(grads),
-                                jax.tree.leaves(jgrads)):
-        scale = float(np.abs(ref).max())
-        assert scale > 0, path
-        diff = np.abs(got - ref)
-        name = jax.tree_util.keystr(path)
-        assert diff.max() <= 2e-2 * scale, (name, diff.max() / scale)
-        assert diff.mean() <= 1e-3 * scale, (name, diff.mean() / scale)
+    assert shape[0] * shape[1] > tr.sampler.compacted_batch  # compaction on
+    assert assert_one_step_matches(
+        jr, tr, min_valid=tr.sampler.compacted_batch + 1) == shape
 
 
 def test_train_range_runs_and_adapts(both_cfgs):
