@@ -54,6 +54,33 @@ on failure:
    Then kernels F and B in xor mode are checked against their twins at the
    flagship xor table (6,098,120 entries) on 2^17 uniform samples and on
    two steps' kept samples of the trained xor field, and timed.
+9. the probe-mode grid refresh: the headline with grid_update_mode="probe"
+   for 1024 steps, kernel F counted in the refreshes' density queries, its
+   test PSNR held 10 dB over the background's, then one probe and one
+   sweep refresh of the trained field timed;
+10. the NGP mesh tool (`python -m jnerf_tpu_torch.tools.extract_mesh`, its
+   entry point in this process) at 512^3 on phase 8's trained linear field:
+   both PLYs, over 1000 vertices inside the unit cube, kernel F counted in
+   the density grid and the vertex-colour render, each step timed; then
+   the native and numpy marching tetrahedra on a 128^3 slice of the grid
+   (every 4th point of each axis), equal and timed;
+11. vanilla NeRF: projects/nerf/configs/nerf_base.py at full width (8 x
+   256, frequency encodings of 10 and 4 octaves) through the CLI on phase
+   8's scene, 1024 steps at learning rate 5e-4 (the config's 1e-2 does not
+   train this MLP) and the test set, whose PSNR must clear the
+   background's by 3 dB; no repo kernel runs;
+12. NeuS: projects/neus/configs/neus_womask.py at full width (SDF 8 x 256
+   with 257 outputs, background NeRF 8 x 256, colour 4 x 256; 512 rays of
+   64 + 64 + 32 samples) through the CLI (--type mesh) on a DTU-format
+   scene of 32 images of 400 x 300 written by the port: the
+   geometric-init mesh at 128^3, --task train for 1500 steps (a checkpoint
+   at the end; f32, TF32 off), then --task validate_mesh at 512^3.  The
+   colour loss of the last 100 steps must be at most half that of the
+   first 100, the eikonal term finite, and the trained mesh's vertices
+   closer to the analytic object, on average, than the init mesh's; no
+   repo kernel runs.
+
+Each of phases 9-12 prints its time and its peak device memory.
 
 The last lines are the kernel table as JSON (each kernel with its bound:
 the larger of its bytes over the memory rate and its operations over the
@@ -122,6 +149,25 @@ CLI_HW = 256
 CLI_PSNR_OVER_BG = 10.0  # dB over predicting the background everywhere
 CLI_TEST_RETEST = 0.5    # dB between the train task's test and --task test
 XOR_N_ENTRIES = 6_098_120
+# Phase 9: the headline with the probe-mode grid refresh.
+PROBE_STEPS = 1024
+PROBE_PSNR_OVER_BG = 10.0
+# Phase 10: the NGP mesh tool on phase 8's linear field.
+MESH_RES = 512
+# Phase 11: vanilla NeRF (nerf_base.py) on phase 8's scene.  The config's
+# learning rate, 1e-2, does not train its 8 x 256 MLP: on an H100,
+# `python3 -m jnerf_tpu_torch.tools.nerf_lr_probe` read a test PSNR of
+# 4.915 dB after 1024 steps at 1e-2 and 24.459 dB at the NeRF paper's 5e-4,
+# against 18.834 dB for the background alone (PERF.md §6).
+VANILLA_STEPS = 1024
+VANILLA_LR = 5e-4
+VANILLA_PSNR_OVER_BG = 3.0
+# Phase 12: NeuS (neus_womask.py) on a DTU-format scene of the port's.
+# 1500 of the config's 100,000 steps (over 2000 steps on an H100 the
+# colour loss fell from 1.081 to 0.025, its pass bar being half).
+NEUS_STEPS = 1500
+NEUS_IMAGES, NEUS_H, NEUS_W = 32, 300, 400
+NEUS_INIT_RES = 128
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -917,31 +963,18 @@ def cli_config(path, scene, log_dir, steps, indexing):
     return path
 
 
-def background_psnr(torch, read_image, mse2psnr, scene, n_test):
-    """Mean over the test images of the PSNR of predicting the background
-    (ngp_base's black) everywhere, from the targets as the runner composes
-    them."""
-    out = []
-    for i in range(n_test):
-        img = read_image(os.path.join(scene, "test", f"r_{i}.png"))
-        target = img[..., :3] * img[..., 3:]
-        out.append(float(mse2psnr(torch.tensor(float((target ** 2).mean())))))
-    return sum(out) / len(out)
-
-
-def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, mse2psnr):
-    """Phase 8: the CLI's train and test tasks on a blender-format scene,
-    linear and xor; returns (per-mode results, the xor run's runner)."""
+def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, tmp):
+    """Phase 8: the CLI's train and test tasks on a blender-format scene
+    written under ``tmp``, linear and xor; returns (per-mode results, with
+    each mode's config file, the xor run's runner, the scene's path)."""
     from jnerf_tpu_torch.dataset.dataset_util import read_image
-    from jnerf_tpu_torch.dataset.synthetic import make_synthetic_scene
+    from jnerf_tpu_torch.dataset.synthetic import (
+        background_psnr, make_synthetic_scene,
+    )
     from jnerf_tpu_torch.runner import Runner
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    counters = {"F": hash_nbr.encode_fwd, "B": hash_nbr.grad_table,
-                "F xor": hash_xor.encode_xor_fwd,
-                "B xor": hash_xor.grad_table_xor,
-                "D-MLP": fused_mlp.fused_density_mlp}
+    counters = launch_counters(hash_nbr, hash_xor, fused_mlp)
     train_s = [0.0]
     orig_range = Runner.train_range
 
@@ -952,19 +985,12 @@ def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, mse2psnr):
         train_s[0] += time.perf_counter() - t0
         return out
 
-    def counts():
-        return {k: fn.launches for k, fn in counters.items()}
-
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-
     try:
         scene = os.path.join(tmp, "scene")
         t0 = time.perf_counter()
         make_synthetic_scene(scene, n_train=24, n_val=2, n_test=4, H=CLI_HW,
                              W=CLI_HW, device="cuda")
-        bg = background_psnr(torch, read_image, mse2psnr, scene, 4)
+        bg = background_psnr(scene, 4)
         print(f"cli scene: 24 + 2 + 4 images of {CLI_HW}x{CLI_HW} written in "
               f"{time.perf_counter() - t0:.3f} s; background-only test PSNR "
               f"{bg:.3f} dB, on {card_line()}", flush=True)
@@ -975,7 +1001,7 @@ def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, mse2psnr):
             cfg = cli_config(os.path.join(tmp, f"cfg_{mode}.py"), scene, logs,
                              steps, mode)
             argv = ["--config-file", cfg, "--device", "cuda"]
-            reset()
+            reset_counts(counters)
             train_s[0] = 0.0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -983,10 +1009,10 @@ def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, mse2psnr):
             runner, psnr = run_net.main(argv + ["--task", "train"])
             task_s = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
-            n_train = counts()
-            reset()
+            n_train = read_counts(counters)
+            reset_counts(counters)
             _, psnr_again = run_net.main(argv + ["--task", "test"])
-            n_test = counts()
+            n_test = read_counts(counters)
             spec = runner.model.pos_encoder.spec
             out = os.path.join(logs, runner.exp_name)
             pngs = [os.path.join(out, "test", f"{runner.exp_name}_{k}_{i}.png")
@@ -1025,30 +1051,444 @@ def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, mse2psnr):
                                  task_s=task_s, peak_mib=peak / 2**20,
                                  psnr=psnr, psnr_test_task=psnr_again,
                                  bg_psnr=bg, train_launches=n_train,
-                                 test_launches=n_test)
+                                 test_launches=n_test, cfg=cfg)
             if mode == "xor":
                 xor_runner = runner
             del runner
     finally:
         Runner.train_range = orig_range
-        shutil.rmtree(tmp, ignore_errors=True)
     print(f"cli phase: {time.perf_counter() - t_phase:.3f} s", flush=True)
-    return results, xor_runner
+    return results, xor_runner, scene
+
+
+def launch_counters(hash_nbr, hash_xor, fused_mlp):
+    """Every kernel wrapper's launch counter, by kernel."""
+    return {"F": hash_nbr.encode_fwd, "B": hash_nbr.grad_table,
+            "F xor": hash_xor.encode_xor_fwd, "B xor": hash_xor.grad_table_xor,
+            "F-MLP": fused_mlp.fused_mlp_fwd, "B-MLP": fused_mlp.fused_mlp_bwd,
+            "D-MLP": fused_mlp.fused_density_mlp}
+
+
+def reset_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def phase_start(torch):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def phase_end(torch, name, t0):
+    """Print and return (seconds, peak MiB) of a phase started at t0."""
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"{name} phase: {secs:.3f} s, peak memory {peak:.1f} MiB", flush=True)
+    return secs, peak
+
+
+def psnr_over_background(torch, runner, mse2psnr, u):
+    """(mean test PSNR, mean PSNR of predicting the run's background
+    everywhere) over the runner's test split."""
+    mses = runner.render_test(save_img=False, u=u)
+    ds = runner.dataset["test"]
+    bg = runner.background_color.numpy()
+    bg_psnr = []
+    for i in range(ds.n_images):
+        tar = ds.image(i)
+        tar = tar[..., :3] * tar[..., 3:] + bg * (1 - tar[..., 3:])
+        bg_psnr.append(float(mse2psnr(float(((tar - bg) ** 2).mean()))))
+    psnr = [float(mse2psnr(m)) for m in mses]
+    return sum(psnr) / len(psnr), sum(bg_psnr) / len(bg_psnr)
+
+
+def time_refresh(torch, runner, step, reps=5):
+    """Mean device time of one grid refresh at ``step``'s sample counts,
+    by CUDA events, the sampler's state restored after each."""
+    sampler = runner.sampler
+    state = sampler.state
+
+    def once():
+        sampler.update_density_grid(training_step=step,
+                                    generator=runner.generator)
+        sampler.state = state
+
+    return cuda_ms(once, iters=reps)
+
+
+def run_probe(torch, Runner, ngp_synthetic_cfg, counters, mse2psnr):
+    """Phase 9: the headline with the probe-mode grid refresh
+    (grid_update_mode='probe') for PROBE_STEPS steps; kernel F counted in
+    the refreshes' density queries; the test split's PSNR against the
+    background's; then one probe and one sweep refresh of the trained
+    field timed."""
+    t_phase = phase_start(torch)
+    cfg = headline_cfg(ngp_synthetic_cfg, False)
+    cfg.grid_update_mode = "probe"
+    runner = Runner(device="cuda")
+    refresh = {"n": 0, "F": 0}
+    orig_update = runner._update_grid
+
+    def update_grid(step):
+        before = counters["F"].launches
+        orig_update(step)
+        refresh["n"] += 1
+        refresh["F"] += counters["F"].launches - before
+
+    runner._update_grid = update_grid
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    loss = float(runner.train_range(0, PROBE_STEPS))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    del runner._update_grid
+    u = torch.rand((runner.render_chunk_rays,), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    psnr, bg = psnr_over_background(torch, runner, mse2psnr, u)
+    g = runner.sampler.grid_config
+    counts = runner.sampler.grid_update_counts(PROBE_STEPS)
+    probe_ms = time_refresh(torch, runner, PROBE_STEPS)
+    runner.sampler.grid_update_mode = "sweep"
+    sweep_ms = time_refresh(torch, runner, PROBE_STEPS)
+    runner.sampler.grid_update_mode = "probe"
+    print(f"probe headline: {PROBE_STEPS} steps in {train_s:.3f} s = "
+          f"{PROBE_STEPS / train_s:.3f} steps/s, loss {loss:.6f}, "
+          f"{refresh['n']} probe refreshes launched kernel F "
+          f"{refresh['F']} times ({g.n_cells * (g.max_cascade + 1)} cells "
+          f"probed before step 256, {counts} after); launches {launches}; "
+          f"test PSNR {psnr:.3f} dB, background alone {bg:.3f} dB; one "
+          f"refresh of the trained field: probe {probe_ms:.4f} ms, sweep "
+          f"{sweep_ms:.4f} ms, on {card_line()}", flush=True)
+    if not (math.isfinite(loss) and psnr >= bg + PROBE_PSNR_OVER_BG):
+        raise SystemExit(f"probe training: loss {loss}, test PSNR {psnr:.3f} "
+                         f"dB against background {bg:.3f} dB")
+    if refresh["F"] <= 0 or launches["B"] < PROBE_STEPS \
+            or refresh["n"] != PROBE_STEPS // runner.sampler.update_den_freq:
+        raise SystemExit(f"probe training did not go through its kernels: "
+                         f"{launches}, refreshes {refresh}")
+    secs, peak = phase_end(torch, "probe", t_phase)
+    return dict(steps=PROBE_STEPS, steps_per_s=PROBE_STEPS / train_s,
+                psnr=psnr, bg_psnr=bg, launches=launches,
+                refreshes=refresh["n"], refresh_launches=refresh["F"],
+                probe_refresh_ms=probe_ms, sweep_refresh_ms=sweep_ms,
+                phase_s=secs, peak_mib=peak)
+
+
+def read_ply_vertices(np, path):
+    """(vertices [V, 3] f32, face count) of a binary PLY of write_ply."""
+    data = Path(path).read_bytes()
+    head, body = data.split(b"end_header\n", 1)
+    nv = int(head.split(b"element vertex ")[1].split(b"\n")[0])
+    nf = int(head.split(b"element face ")[1].split(b"\n")[0])
+    stride = 15 if b"property uchar red" in head else 12
+    rec = np.frombuffer(body[:stride * nv], np.uint8).reshape(nv, stride)
+    return rec[:, :12].copy().view(np.float32).reshape(nv, 3), nf
+
+
+def run_mesh_tool(torch, extract_mesh, counters, cfg_path):
+    """Phase 10: the NGP mesh tool (its entry point, in this process) at
+    MESH_RES on phase 8's trained linear field, each step timed; then the
+    native and numpy marching tetrahedra on a 128^3 slice of its density
+    grid (every 4th point of each axis), checked equal and timed."""
+    import numpy as np
+
+    t_phase = phase_start(torch)
+    got, secs = {}, {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+            got[name] = out
+            return out
+        return run
+
+    names = ("density_grid", "vertex_colors", "marching_tetrahedra",
+             "largest_component")
+    saved = {name: getattr(extract_mesh, name) for name in names}
+    for name in names:
+        setattr(extract_mesh, name, timed(name, saved[name]))
+    launches = {}
+    orig_colors = extract_mesh.vertex_colors
+
+    def colors(*a, **k):
+        launches["grid F"] = counters["F"].launches
+        return orig_colors(*a, **k)
+
+    extract_mesh.vertex_colors = colors
+    reset_counts(counters)
+    try:
+        t0 = time.perf_counter()
+        paths = extract_mesh.mesh(["--config-file", cfg_path, "--resolution",
+                                   str(MESH_RES), "--device", "cuda"])
+        tool_s = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(extract_mesh, name, fn)
+    counts = read_counts(counters)
+    launches["colour F"] = counts["F"] - launches["grid F"]
+    sigma = got["density_grid"]
+    plys = [read_ply_vertices(np, p) for p in paths]
+    v_all, v_col = plys[0][0], plys[1][0]
+    inside = bool(((v_all >= 0) & (v_all <= 1)).all()
+                  and ((v_col >= 0) & (v_col <= 1)).all())
+    print(f"mesh tool at {MESH_RES}^3: {tool_s:.3f} s (density grid "
+          f"{secs['density_grid']:.3f} s, marching tetrahedra "
+          f"{secs['marching_tetrahedra']:.3f} s, largest component "
+          f"{secs['largest_component']:.3f} s, vertex colours "
+          f"{secs['vertex_colors']:.3f} s); mesh-origin {len(v_all)} vertices "
+          f"{plys[0][1]} faces, mesh-color {len(v_col)} vertices {plys[1][1]} "
+          f"faces, all inside the unit cube: {inside}; sigma > 0.5 on "
+          f"{int((sigma > 0.5).sum())} of {sigma.size} grid points; kernel F "
+          f"launches: density grid {launches['grid F']}, colour render "
+          f"{launches['colour F']}; all launches {counts}", flush=True)
+    if not (len(v_all) > 1000 and len(v_col) > 1000 and inside
+            and all(os.path.getsize(p) > 0 for p in paths)):
+        raise SystemExit("the mesh tool's PLYs are missing, too small or "
+                         "outside the AABB")
+    if launches["grid F"] < (MESH_RES ** 3) // extract_mesh.QUERY_ROWS \
+            or launches["colour F"] <= 0 or counts["D-MLP"]:
+        raise SystemExit(f"the mesh tool did not go through kernel F: "
+                         f"{launches}, {counts}")
+
+    # Every 4th grid point of each axis: a 128^3 slice over the whole field.
+    k = max(1, MESH_RES // 128)
+    block = np.ascontiguousarray(sigma[::k, ::k, ::k])
+    out, mt_s = {}, {}
+    for use_native in (True, False):
+        t0 = time.perf_counter()
+        out[use_native] = saved["marching_tetrahedra"](block, 0.5, use_native)
+        mt_s[use_native] = time.perf_counter() - t0
+    (vn, tn), (vp, tp) = out[True], out[False]
+    same = (len(vn) == len(vp) and len(tn) == len(tp) and np.array_equal(
+        np.unique(np.round(vn, 4), axis=0), np.unique(np.round(vp, 4), axis=0)))
+    print(f"marching tetrahedra on the grid's 128^3 slice (every {k}th "
+          f"point of each axis): native "
+          f"{mt_s[True]:.3f} s, numpy {mt_s[False]:.3f} s; {len(vn)} vertices, "
+          f"{len(tn)} triangles; the same mesh: {same}", flush=True)
+    if not (same and len(tn) > 0):
+        raise SystemExit("native and numpy marching tetrahedra disagree")
+    secs_phase, peak = phase_end(torch, "mesh tool", t_phase)
+    return dict(res=MESH_RES, tool_s=tool_s, steps_s=secs,
+                vertices=len(v_all), color_vertices=len(v_col),
+                launches=launches, native_s=mt_s[True], numpy_s=mt_s[False],
+                phase_s=secs_phase, peak_mib=peak)
+
+
+def run_vanilla_nerf(torch, run_net, counters, mse2psnr, scene, bg, tmp):
+    """Phase 11: projects/nerf/configs/nerf_base.py at full width (8 x 256,
+    frequency encodings of 10 and 4 octaves) through the CLI, --task train
+    for VANILLA_STEPS steps at learning rate VANILLA_LR and its test set,
+    on phase 8's 256^2 scene; the test PSNR must clear the background's by
+    VANILLA_PSNR_OVER_BG dB.  No repo kernel runs on this path."""
+    t_phase = phase_start(torch)
+    base = Path(__file__).resolve().parent / "projects/nerf/configs/nerf_base.py"
+    cfg = os.path.join(tmp, "cfg_nerf.py")
+    Path(cfg).write_text(textwrap.dedent(f"""\
+        _base_ = {str(base)!r}
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root_dir=dataset_dir),
+                       val=dict(root_dir=dataset_dir),
+                       test=dict(root_dir=dataset_dir))
+        log_dir = {os.path.join(tmp, "logs_nerf")!r}
+        tot_train_steps = {VANILLA_STEPS}
+        optim = dict(type="Adam", lr={VANILLA_LR!r}, eps=1e-15,
+                     betas=(0.9, 0.99))
+    """))
+    from jnerf_tpu_torch.runner import Runner
+
+    train_s = [0.0]
+    orig_range = Runner.train_range
+
+    def timed_range(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig_range(self, *a, **k)
+        torch.cuda.synchronize()
+        train_s[0] += time.perf_counter() - t0
+        return out
+
+    reset_counts(counters)
+    Runner.train_range = timed_range
+    try:
+        runner, psnr = run_net.main(["--config-file", cfg, "--device", "cuda",
+                                     "--task", "train"])
+    finally:
+        Runner.train_range = orig_range
+    counts = read_counts(counters)
+    net = runner.model
+    width = [tuple(layer.w.shape) for layer in net.pts_linears]
+    print(f"vanilla NeRF (nerf_base.py): {type(net).__name__} pts layers "
+          f"{width}, encodings {net.pos_encoder.out_dim} / "
+          f"{net.dir_encoder.out_dim}, compute {net.compute_dtype}; "
+          f"{VANILLA_STEPS} steps in {train_s[0]:.3f} s = "
+          f"{VANILLA_STEPS / train_s[0]:.3f} steps/s, last shape "
+          f"{runner.sampler.n_rays_per_batch} x "
+          f"{runner.sampler.n_samples_per_ray}; TOTAL TEST PSNR {psnr:.3f} dB, "
+          f"background alone {bg:.3f} dB; kernel launches {counts}, on "
+          f"{card_line()}", flush=True)
+    if len(width) != 8 or width[0] != (63, 256) or net.dir_encoder.out_dim != 27:
+        raise SystemExit(f"nerf_base.py did not build 8 x 256: {width}")
+    if any(counts.values()):
+        raise SystemExit(f"vanilla NeRF launched a repo kernel: {counts}")
+    if not psnr >= bg + VANILLA_PSNR_OVER_BG:
+        raise SystemExit(f"vanilla NeRF test PSNR {psnr:.3f} dB is not "
+                         f"{VANILLA_PSNR_OVER_BG} dB over the background's "
+                         f"{bg:.3f}")
+    secs, peak = phase_end(torch, "vanilla NeRF", t_phase)
+    return dict(steps=VANILLA_STEPS, steps_per_s=VANILLA_STEPS / train_s[0],
+                psnr=psnr, bg_psnr=bg, phase_s=secs, peak_mib=peak)
+
+
+def mesh_distance(np, neus_sdf, path):
+    """(vertex count, mean |analytic SDF| of a PLY's vertices)."""
+    v, _ = read_ply_vertices(np, path)
+    return len(v), float(np.abs(neus_sdf(v.astype(np.float64))).mean())
+
+
+def run_neus(torch, run_net, counters, tmp):
+    """Phase 12: projects/neus/configs/neus_womask.py at full width through
+    the CLI (--type mesh) on a DTU-format scene the port writes: the
+    geometric-init mesh, --task train for NEUS_STEPS steps (a checkpoint at
+    the end), then --task validate_mesh (512^3, world space)."""
+    import numpy as np
+
+    from jnerf_tpu_torch.dataset.synthetic import (
+        make_synthetic_neus_scene, neus_sdf,
+    )
+    from jnerf_tpu_torch.runner import NeuSRunner
+    from jnerf_tpu_torch.utils.config import init_cfg
+
+    t_phase = phase_start(torch)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 matmuls are on: NeuS runs in f32")
+    t0 = time.perf_counter()
+    scene = make_synthetic_neus_scene(os.path.join(tmp, "neus_scene"),
+                                      n_images=NEUS_IMAGES, H=NEUS_H, W=NEUS_W)
+    scene_s = time.perf_counter() - t0
+    base = (Path(__file__).resolve().parent
+            / "projects/neus/configs/neus_womask.py")
+    cfg = os.path.join(tmp, "cfg_neus.py")
+    exp = os.path.join(tmp, "neus_exp")
+    Path(cfg).write_text(textwrap.dedent(f"""\
+        _base_ = {str(base)!r}
+        dataset = dict(dataset_dir={scene!r})
+        base_exp_dir = {exp!r}
+        end_iter = {NEUS_STEPS}
+        save_freq = {NEUS_STEPS}
+    """))
+    init_cfg(cfg)
+    fresh = NeuSRunner(device="cuda")
+    net = fresh.neus_network
+    shapes = {"sdf": [tuple(layer.w.shape) for layer in net.sdf_network.layers],
+              "nerf": len(net.nerf_outside.pts_linears),
+              "color": [tuple(layer.w.shape)
+                        for layer in net.color_network.layers]}
+    r = fresh.renderer
+    init_n, init_d = mesh_distance(np, neus_sdf, fresh.validate_mesh(
+        world_space=True, resolution=NEUS_INIT_RES))
+    del fresh, net
+
+    losses, starts = [], []
+    orig_step = NeuSRunner.train_step
+
+    def train_step(self, *a, **k):
+        starts.append(time.perf_counter())
+        out = orig_step(self, *a, **k)
+        losses.append(out)
+        return out
+
+    argv = ["--config-file", cfg, "--device", "cuda", "--type", "mesh"]
+    reset_counts(counters)
+    NeuSRunner.train_step = train_step
+    try:
+        t0 = time.perf_counter()
+        runner, _ = run_net.main(argv + ["--task", "train"])
+        torch.cuda.synchronize()
+        train_task_s = time.perf_counter() - t0
+    finally:
+        NeuSRunner.train_step = orig_step
+    hist = torch.stack(losses).cpu()
+    # Report lines every 100 steps wait for the device, so the host clock
+    # between the starts of steps 100 and N-1 follows the device.
+    steps_per_s = (len(starts) - 101) / (starts[-1] - starts[100])
+    del runner
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, ply = run_net.main(argv + ["--task", "validate_mesh"])
+    mesh_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    n_v, dist = mesh_distance(np, neus_sdf, ply)
+    first, last = float(hist[:100, 1].mean()), float(hist[-100:, 1].mean())
+    eik = hist[:, 2]
+    print(f"NeuS (neus_womask.py): scene {NEUS_IMAGES} images of "
+          f"{NEUS_W}x{NEUS_H} written in {scene_s:.3f} s; SDF layers "
+          f"{shapes['sdf']}, background NeRF {shapes['nerf']} layers, colour "
+          f"{shapes['color']}; {r.n_samples} + {r.n_importance} + "
+          f"{r.n_outside} samples, {again.batch_size} rays; {len(losses)} "
+          f"steps, train task {train_task_s:.3f} s, {steps_per_s:.3f} steps/s "
+          f"(steps 100-{len(losses) - 1}); colour loss first 100 {first:.5f}, "
+          f"last 100 {last:.5f}; eikonal last {float(eik[-1]):.5f}, finite "
+          f"{bool(torch.isfinite(eik).all())}; validate_mesh at 512^3 "
+          f"{mesh_s:.3f} s (iter {again.iter_step}): {n_v} vertices, mean "
+          f"|SDF| {dist:.5f}; geometric-init mesh at {NEUS_INIT_RES}^3: "
+          f"{init_n} vertices, mean |SDF| {init_d:.5f}; kernel launches "
+          f"{counts}, on {card_line()}", flush=True)
+    if shapes["sdf"][0] != (39, 256) or shapes["sdf"][-1] != (256, 257) \
+            or shapes["nerf"] != 8 or len(shapes["color"]) != 5 \
+            or (r.n_samples, r.n_importance, r.n_outside) != (64, 64, 32) \
+            or again.batch_size != 512:
+        raise SystemExit(f"neus_womask.py did not build its full width: "
+                         f"{shapes}")
+    if len(losses) != NEUS_STEPS or again.iter_step != NEUS_STEPS:
+        raise SystemExit(f"NeuS ran {len(losses)} steps, validate_mesh read "
+                         f"iter {again.iter_step}")
+    if not (last <= 0.5 * first and bool(torch.isfinite(eik).all())
+            and bool(torch.isfinite(hist).all())):
+        raise SystemExit(f"NeuS colour loss {first:.5f} -> {last:.5f}, "
+                         f"eikonal finite {bool(torch.isfinite(eik).all())}")
+    if not (n_v > 1000 and dist < init_d):
+        raise SystemExit(f"the NeuS mesh ({n_v} vertices) is no closer to the "
+                         f"object ({dist:.5f}) than the init mesh "
+                         f"({init_d:.5f})")
+    if any(counts.values()):
+        raise SystemExit(f"NeuS launched a repo kernel: {counts}")
+    secs, peak = phase_end(torch, "NeuS", t_phase)
+    return dict(steps=NEUS_STEPS, steps_per_s=steps_per_s,
+                color_loss_first=first, color_loss_last=last,
+                validate_mesh_s=mesh_s, vertices=n_v, mean_abs_sdf=dist,
+                init_mean_abs_sdf=init_d, phase_s=secs, peak_mib=peak)
 
 
 def build_kernels(torch, cuda_lib):
-    """Phase 2: one nvcc per source, started together."""
+    """Phase 2: one nvcc per source and the g++ build of the host-side
+    marching tetrahedra, started together."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from jnerf_tpu_torch import native
 
     t0 = time.perf_counter()
     names = ("hash_encode", "fused_mlp")
     preludes = (cuda_lib.hash_prelude(), "")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(native.build)
         libs = list(pool.map(cuda_lib.build, names, preludes))
+        host_lib = host.result()
     cuda_lib.hash_encode_lib()
     cuda_lib.fused_mlp_lib()
-    print(f"built {', '.join(lib.name for lib in libs)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    native.marching_lib()
+    print(f"built {', '.join(lib.name for lib in libs)} and "
+          f"{os.path.basename(host_lib)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling",
@@ -1131,8 +1571,35 @@ def main() -> int:
                          pallas_mlp)
     quality_launches = run_quality(torch, Runner, ngp_synthetic_cfg, hash_nbr,
                                    fused_mlp, img2mse, mse2psnr)
-    cli, xor_runner = run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp,
-                              mse2psnr)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        kernels = later_phases(torch, Runner, ngp_synthetic_cfg, run_net,
+                               hash_nbr, hash_xor, hash_grid, fused_mlp,
+                               mse2psnr, tmp, hs, mlp, launches,
+                               fused_launches, mlp_chunk, n_chunk,
+                               quality_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"chip_smoke.py: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
+                 hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
+                 launches, fused_launches, mlp_chunk, n_chunk,
+                 quality_launches):
+    """Phases 8-12 (the CLI, the xor kernels, the probe refresh, the mesh
+    tool, vanilla NeRF and NeuS) in ``tmp``; returns the kernels line."""
+    from jnerf_tpu_torch.tools import extract_mesh
+
+    cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
+                                     fused_mlp, tmp)
     xspec = xor_runner.model.pos_encoder.spec
     if xspec.n_entries != XOR_N_ENTRIES:
         raise SystemExit(f"the xor table has {xspec.n_entries} entries, not "
@@ -1148,6 +1615,13 @@ def main() -> int:
     del xor_pos, xor_g
     xs["uniform"] = check_hash_xor(torch, hash_xor, hash_grid, "uniform",
                                    xspec, *uniform_samples(torch, xspec))
+    counters = launch_counters(hash_nbr, hash_xor, fused_mlp)
+    probe = run_probe(torch, Runner, ngp_synthetic_cfg, counters, mse2psnr)
+    mesh = run_mesh_tool(torch, extract_mesh, counters,
+                         cli["linear_rows"]["cfg"])
+    run_vanilla_nerf(torch, run_net, counters, mse2psnr, scene,
+                     cli["linear_rows"]["bg_psnr"], tmp)
+    run_neus(torch, run_net, counters, tmp)
 
     head = "step f8l4@2^19"
     others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")
@@ -1168,6 +1642,9 @@ def main() -> int:
             fused_path_launches=fused_launches["hash_fwd"],
             quality_path_launches=quality_launches["fwd"],
             cli_path_launches=cli["linear_rows"]["train_launches"]["F"],
+            probe_path_launches=probe["launches"]["F"],
+            probe_refresh_launches=probe["refresh_launches"],
+            mesh_tool_launches=mesh["launches"],
             f32_ms=hs[head]["fwd"]["f32_ms"],
             **{k: {m: hs[k]["fwd"][m] for m in fwd_keys
                    + (("launches",) if k.startswith("render") else ())}
@@ -1184,6 +1661,7 @@ def main() -> int:
             fused_path_launches=fused_launches["hash_bwd"],
             quality_path_launches=quality_launches["bwd"],
             cli_path_launches=cli["linear_rows"]["train_launches"]["B"],
+            probe_path_launches=probe["launches"]["B"],
             **{k: {m: hs[k]["bwd"][m] for m in ("ms", "plain_ms", "bound_ms",
                                                 "library_ms")}
                for k in others}),
@@ -1241,14 +1719,7 @@ def main() -> int:
     ]
     for k in kernels:
         k["max_abs_err"] = float(k["max_abs_err"])
-    print(f"chip_smoke.py: all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(card_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ the caller's device, with every sum written out in the order numpy takes
 it, so that on the CPU the plain scene's images equal the JAX package's bit
 for bit and the hard scene's within float64 rounding.
 ``make_synthetic_scene`` writes the plain scene to disk in blender format
-(jsons and PNGs), as the JAX package's writer does; the NeuS scene writer
-is not ported.
+(jsons and PNGs), as the JAX package's writer does.
+``make_synthetic_neus_scene`` writes the NeuS test object (two spheres
+inside the unit sphere) in DTU format, traced in numpy as the JAX package
+traces it; ``neus_sdf`` is its analytic SDF.
 """
 
 from __future__ import annotations
@@ -236,4 +238,103 @@ def make_synthetic_scene(
     make_split("train", n_train, 0.0)
     make_split("val", n_val, 0.37)
     make_split("test", n_test, 0.11)
+    return out_dir
+
+
+def background_psnr(scene_dir: str, n_test: int) -> float:
+    """Mean PSNR, over the first ``n_test`` test images of a blender-format
+    scene, of predicting a black background everywhere (the images'
+    colours composited over black): the floor a trained field must
+    clear."""
+    from .dataset_util import read_image
+
+    out = []
+    for i in range(n_test):
+        img = read_image(os.path.join(scene_dir, "test", f"r_{i}.png"))
+        mse = float(((img[..., :3] * img[..., 3:]) ** 2).mean())
+        out.append(-10.0 * np.log10(mse))
+    return float(np.mean(out))
+
+
+# --------------------------------------------------------------------- NeuS
+_NEUS_SPHERES = [
+    (np.array([0.0, 0.0, -0.1]), 0.45, np.array([0.8, 0.45, 0.3])),
+    (np.array([0.0, 0.0, 0.42]), 0.22, np.array([0.35, 0.55, 0.8])),
+]
+
+
+def neus_sdf(pts: np.ndarray) -> np.ndarray:
+    """Analytic SDF of the NeuS test scene (union of spheres); for tests."""
+    d = np.full(pts.shape[:-1], np.inf)
+    for center, radius, _ in _NEUS_SPHERES:
+        d = np.minimum(d, np.linalg.norm(pts - center, axis=-1) - radius)
+    return d
+
+
+def make_synthetic_neus_scene(out_dir: str, n_images: int = 12, H: int = 96,
+                              W: int = 96, seed: int = 0) -> str:
+    """Write a DTU-format scene (cameras_sphere.npz + image/ + mask/ PNGs,
+    through the port's PNG codec) of an analytic two-sphere object inside
+    the unit sphere: the JAX package's cameras and images for the same
+    arguments; returns out_dir."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(out_dir, "image"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "mask"), exist_ok=True)
+
+    focal = 1.2 * max(H, W)
+    K = np.array(
+        [[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float64
+    )
+    light = _LIGHT_DIR / np.linalg.norm(_LIGHT_DIR)
+    cams = {}
+    for i in range(n_images):
+        theta = 2 * np.pi * i / n_images + rng.uniform(-0.05, 0.05)
+        phi = np.radians(rng.uniform(-10, 45))
+        eye = 3.0 * np.array(
+            [np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)]
+        )
+        # Camera looks at origin; +z camera axis = viewing direction (OpenCV).
+        fwd = -eye / np.linalg.norm(eye)
+        up = np.array([0.0, 0.0, 1.0])
+        right = np.cross(fwd, up)
+        right /= np.linalg.norm(right)
+        dn = np.cross(fwd, right)
+        R_w2c = np.stack([right, dn, fwd], axis=0)  # rows
+        t = -R_w2c @ eye
+        world_mat = np.eye(4)
+        world_mat[:3, :] = K @ np.concatenate([R_w2c, t[:, None]], axis=1)
+        cams[f"world_mat_{i}"] = world_mat.astype(np.float32)
+        cams[f"scale_mat_{i}"] = np.eye(4, dtype=np.float32)
+
+        # Ray-trace the spheres through the OpenCV camera.
+        ys, xs = np.mgrid[0:H, 0:W]
+        d_cam = np.stack(
+            [(xs + 0.5 - W / 2) / focal, (ys + 0.5 - H / 2) / focal,
+             np.ones_like(xs, np.float64)], axis=-1,
+        )
+        dirs = d_cam @ np.stack([right, dn, fwd], axis=0)
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        origin = np.broadcast_to(eye, dirs.shape)
+        best_t = np.full((H, W), np.inf)
+        rgb = np.full((H, W, 3), 0.05)
+        hit = np.zeros((H, W), bool)
+        for center, radius, color in _NEUS_SPHERES:
+            oc = origin - center
+            b = np.sum(oc * dirs, axis=-1)
+            c = np.sum(oc * oc, axis=-1) - radius * radius
+            disc = b * b - c
+            valid = disc > 0
+            t_hit = -b - np.sqrt(np.where(valid, disc, 0.0))
+            valid &= (t_hit > 0) & (t_hit < best_t)
+            p = origin + t_hit[..., None] * dirs
+            nrm = (p - center) / radius
+            shade = 0.35 + 0.65 * np.clip(np.sum(nrm * light, axis=-1), 0, 1)
+            rgb = np.where(valid[..., None], color * shade[..., None], rgb)
+            best_t = np.where(valid, t_hit, best_t)
+            hit |= valid
+        write_image(os.path.join(out_dir, "image", f"{i:03d}.png"),
+                    rgb.astype(np.float32))
+        write_image(os.path.join(out_dir, "mask", f"{i:03d}.png"),
+                    np.repeat(hit[..., None].astype(np.float32), 3, axis=-1))
+    np.savez(os.path.join(out_dir, "cameras_sphere.npz"), **cams)
     return out_dir

@@ -1,1 +1,3 @@
 from .ngp_network import NGPNetworks  # noqa: F401
+from .ori_nerf_network import OriginNeRFNetworks  # noqa: F401
+from .neus_network import NeuS  # noqa: F401

@@ -1,6 +1,7 @@
-"""Bias-free MLP blocks, weights stored ``w[in, out]`` as in the JAX package.
+"""MLP blocks, weights stored ``w[in, out]`` as in the JAX package.
 
-Counterpart of `jnerf_tpu/models/networks/mlp.py` for the bias-free NGP
+Counterpart of `jnerf_tpu/models/networks/mlp.py`: the bias-free NGP
+``MLP`` and the ``Linear`` layer ``{w, b}`` of the vanilla-NeRF and NeuS
 networks.  The precision policy is the JAX package's: with a bf16 compute
 dtype both operands of each product are rounded to bf16, the product is
 accumulated and returned in f32 (JAX's ``preferred_element_type=f32``),
@@ -13,7 +14,8 @@ bf16-rounded operands.  Products of two bf16 values are exact in f32 (and
 in TF32, whose 10-bit mantissa holds bf16's 7), so the card's f32/TF32
 matmul and the CPU's give the JAX result up to summation order.  The
 backward of each ``.to(bf16)`` rounds the gradient to bf16 exactly where
-JAX's transposed dot does.
+JAX's transposed dot does.  A bias is added in f32 after the product,
+as the JAX package adds it.
 """
 
 from __future__ import annotations
@@ -33,12 +35,14 @@ def init_linear_(w: torch.Tensor, generator: torch.Generator) -> None:
                 * (2 * bound) - bound)
 
 
-def apply_linear(w: torch.Tensor, x: torch.Tensor, compute_dtype=None):
-    """x [N, in] @ w [in, out] -> [N, out] f32."""
+def apply_linear(w: torch.Tensor, x: torch.Tensor, compute_dtype=None,
+                 b: torch.Tensor | None = None):
+    """x [N, in] @ w [in, out] (+ b [out]) -> [N, out] f32."""
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    return torch.matmul(x.float(), w.float())
+    y = torch.matmul(x.float(), w.float())
+    return y if b is None else y + b.float()
 
 
 def apply_mlp(weights: Sequence[torch.Tensor], x: torch.Tensor,
@@ -71,3 +75,24 @@ class MLP(nn.Module):
 
     def forward(self, x, compute_dtype=None):
         return apply_mlp(list(self.weights), x, compute_dtype)
+
+
+class Linear(nn.Module):
+    """One layer ``{w [in, out], b [out]}``: the JAX package's
+    ``init_linear`` (w ~ U(+-sqrt(6/in)), b ~ U(+-sqrt(1/in))) unless the
+    owner initialises it otherwise."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty((in_dim, out_dim)))
+        self.b = nn.Parameter(torch.empty((out_dim,)))
+
+    def reset_parameters(self, generator: torch.Generator):
+        init_linear_(self.w, generator)
+        bound = math.sqrt(1.0 / self.w.shape[0])
+        with torch.no_grad():
+            self.b.copy_(torch.rand(self.b.shape, generator=generator,
+                                    device=self.b.device) * (2 * bound) - bound)
+
+    def forward(self, x, compute_dtype=None):
+        return apply_linear(self.w, x, compute_dtype, self.b)

@@ -3,9 +3,9 @@
 Counterpart of `jnerf_tpu/models/samplers/density_grid_sampler.py`: the
 grid state is a dict of tensors on the sampler's device, the march is the
 static-shape candidate selection of `ops.ray_march`, the refresh is the
-dense alternating-half sweep, and ``update_batch_rays`` is the same
-deadband controller on the host.  The reference-faithful ``probe`` refresh
-mode is not ported yet.
+dense alternating-half sweep (``grid_update_mode='sweep'``, the default)
+or the reference's sampled probe refresh (``'probe'``), and
+``update_batch_rays`` is the same deadband controller on the host.
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ from jnerf_tpu_torch.ops.occupancy import (
     GridConfig,
     density_grid_mean,
     ema_grid_update,
+    generate_grid_samples,
     make_grid_config,
     mark_untrained_grid,
+    splat_density,
     update_bitfield,
 )
 from jnerf_tpu_torch.ops.ray_march import MarchConfig, RaySamples, sample_rays
@@ -32,13 +34,14 @@ SWEEP_CHUNK = 1 << 17
 @SAMPLERS.register_module()
 class DensityGridSampler:
     NERF_GRIDSIZE = 128
+    NERF_MIN_OPTICAL_THICKNESS = 0.01
 
     def __init__(self, update_den_freq=16, device=None):
         cfg = get_cfg()
-        if (cfg.grid_update_mode or "sweep") != "sweep":
-            raise NotImplementedError(
-                f"grid_update_mode={cfg.grid_update_mode!r}: only the 'sweep' "
-                "refresh is ported (ROADMAP.md, port queue: probe-mode refresh)")
+        self.grid_update_mode = cfg.grid_update_mode or "sweep"
+        if self.grid_update_mode not in ("sweep", "probe"):
+            raise ValueError(
+                f"grid_update_mode={cfg.grid_update_mode!r}: 'sweep' or 'probe'")
         self.cfg = cfg
         self.model = cfg.model_obj
         self.dataset = cfg.dataset_obj
@@ -126,19 +129,22 @@ class DensityGridSampler:
 
     # ----------------------------------------------------------- grid update
     def update_density_grid_fn(self, state, first_step: bool, generator=None,
-                               jitter=None):
-        """Dense alternating-half sweep refresh (the JAX package's
-        ``_sweep_refresh``): one jittered density sample in every cell of
-        an alternating half of each active cascade (the whole grid on the
-        step-0 refresh), then the decay-max EMA and the bitfield.
+                               jitter=None, n_uniform: int = 0,
+                               n_nonuniform: int = 0):
+        """One grid refresh: new density samples, the decay-max EMA and the
+        bitfield (the JAX package's ``update_density_grid_fn``).
 
-        ``jitter`` [n_casc, 3, n_sweep] in [0, 1), if given, replaces the
-        draws from ``generator``.
+        'sweep': one jittered density sample in every cell of an
+        alternating half of each active cascade (the whole grid on the
+        step-0 refresh); ``jitter`` [n_casc, 3, n_sweep] in [0, 1), if
+        given, replaces the draws from ``generator``.  'probe': the
+        reference's sampled refresh, ``n_uniform`` cells probed at density
+        > -0.01 and ``n_nonuniform`` at > 0.01 (`grid_update_counts`),
+        max-splatted; ``jitter``, if given, is a list of (level [n],
+        jitter [3, n]) draws, one for each nonzero count in that order.
         """
         g = self.grid_config
-        gs = g.grid_size
         grid = state["density_grid"]
-        dev = grid.device
         if first_step:
             grid = mark_untrained_grid(
                 self.dataset.transforms_gpu,
@@ -146,6 +152,27 @@ class DensityGridSampler:
                 self.dataset.resolution,
                 g,
             )
+        if self.grid_update_mode == "sweep":
+            grid_tmp = self._sweep_samples(state, grid, first_step, generator,
+                                           jitter)
+        else:
+            grid_tmp = self._probe_samples(state, grid, generator, jitter,
+                                           n_uniform, n_nonuniform)
+        grid = ema_grid_update(grid, grid_tmp, g)
+        mean = density_grid_mean(grid, g)
+        return {
+            "density_grid": grid,
+            "bitfield": update_bitfield(grid, mean, g, self._pool_hi),
+            "mean": mean,
+            "ema_step": state["ema_step"] + 1,
+            "measured_batch_size": state["measured_batch_size"],
+        }
+
+    def _sweep_samples(self, state, grid, first_step, generator, jitter):
+        """The sweep's new densities [C, G, G, G] (0 where not swept)."""
+        g = self.grid_config
+        gs = g.grid_size
+        dev = grid.device
         n_casc = g.max_cascade + 1
         n_sweep = g.n_cells if first_step else g.n_cells // 2
         base = 0 if first_step else (state["ema_step"] % 2) * (g.n_cells // 2)
@@ -172,15 +199,34 @@ class DensityGridSampler:
         for c in range(n_casc):
             lo = c * g.n_cells + base
             flat_tmp[lo:lo + n_sweep] = thickness[c * n_sweep:(c + 1) * n_sweep]
-        grid = ema_grid_update(grid, flat_tmp.reshape(grid.shape), g)
-        mean = density_grid_mean(grid, g)
-        return {
-            "density_grid": grid,
-            "bitfield": update_bitfield(grid, mean, g, self._pool_hi),
-            "mean": mean,
-            "ema_step": state["ema_step"] + 1,
-            "measured_batch_size": state["measured_batch_size"],
-        }
+        return flat_tmp.reshape(grid.shape)
+
+    def _probe_samples(self, state, grid, generator, draws, n_uniform,
+                       n_nonuniform):
+        """The probe refresh's max-splatted new densities [C, G, G, G]."""
+        g = self.grid_config
+        counts = [(n, thresh) for n, thresh in
+                  ((n_uniform, -0.01),
+                   (n_nonuniform, self.NERF_MIN_OPTICAL_THICKNESS)) if n]
+        if draws is None:
+            draws = [(None, None)] * len(counts)
+        if len(draws) != len(counts):
+            raise ValueError(f"{len(draws)} probe draws for {len(counts)} "
+                             "sample sets")
+        idx_parts, comp_parts = [], []
+        for (n, thresh), (level, jit) in zip(counts, draws):
+            idx, comps = generate_grid_samples(
+                grid, state["ema_step"], n, thresh, g, generator=generator,
+                level=level, jitter=jit)
+            idx_parts.append(idx)
+            comp_parts.append(comps)
+        # Warp to aabb-relative coordinates, where the encoder is defined.
+        warped = torch.stack([
+            (torch.cat([c[d] for c in comp_parts]) - g.aabb_min) / g.aabb_diag
+            for d in range(3)], dim=-1)
+        raw = self._chunked_density(warped)
+        return splat_density(torch.cat(idx_parts), raw, torch.zeros_like(grid),
+                             g)
 
     @torch.no_grad()
     def _chunked_density(self, warped):
@@ -191,11 +237,21 @@ class DensityGridSampler:
             for i in range(0, warped.shape[0], SWEEP_CHUNK)
         ])
 
+    def grid_update_counts(self, training_step: int):
+        """(n_uniform, n_nonuniform) cells a probe refresh samples
+        (`update_density_grid`, :255-263): every active cell before step
+        256, then a quarter of them each way."""
+        n_cells = self.grid_config.n_cells * (self.grid_config.max_cascade + 1)
+        if training_step < 256:
+            return n_cells, 0
+        return n_cells // 4, n_cells // 4
+
     def update_density_grid(self, training_step=0, generator=None, jitter=None):
         """Refresh ``self.state`` in place of the old one."""
+        n_u, n_n = self.grid_update_counts(training_step)
         self.state = self.update_density_grid_fn(
             self.state, first_step=(training_step == 0), generator=generator,
-            jitter=jitter)
+            jitter=jitter, n_uniform=n_u, n_nonuniform=n_n)
         return self.state
 
     # ----------------------------------------------------- batch adaptation

@@ -5,8 +5,9 @@ Same functions as `jnerf_tpu/ops/occupancy.py` (the reference's
 `ema_grid_samples_nerf.h`, `update_bitfield.h`): the bitfield is a dense
 [C, G, G, G] bool tensor in linear (x-major) layout, and the cascade
 max-pool writes the 2x-downsampled finer level into the centre octant of
-the next one.  The probe-mode sample generation and max-splat
-(`generate_grid_samples`, `splat_density`) are not ported yet.
+the next one.  The probe-mode refresh's cell choice and max-splat
+(`generate_grid_samples_nerf_nonuniform.h`,
+`splat_grid_samples_nerf_max_nearest_neighbor.h`) are here too.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from jnerf_tpu_torch.ops.composite import network_to_density
 
 SQRT3 = math.sqrt(3.0)
 
@@ -163,6 +166,69 @@ def mark_untrained_grid(poses, focal_lengths, resolution, cfg: GridConfig):
         )
     grid = torch.where(seen, 0.0, -1.0)
     return grid.reshape(cfg.n_cascades, g, g, g)
+
+
+def _probe_cells(i, step: int, n_samples: int, n_cells: int):
+    """The reference's deterministic cell probe sequence for samples ``i``
+    [n] (int64): [n, 10] cells, in uint32 arithmetic (every product and
+    sum wraps at 2^32) as `generate_grid_samples_nerf_nonuniform.h` and
+    the JAX package compute it."""
+    m32 = 0xFFFFFFFF
+    j = torch.arange(10, dtype=torch.int64, device=i.device)
+    base = (i + (step * n_samples & m32)) & m32
+    probe = ((base[:, None] * 56924617) & m32) + j[None, :] * 19349663
+    return ((probe + 96925573) & m32) % n_cells
+
+
+def generate_grid_samples(grid, step: int, n_samples: int, thresh: float,
+                          cfg: GridConfig, generator=None, level=None,
+                          jitter=None):
+    """Pick ``n_samples`` cells and a jittered position inside each.
+
+    A random cascade in [0, max_cascade], then up to 10 tries of the
+    deterministic probe for a cell whose density exceeds ``thresh`` (the
+    last probe if none does), then a uniform jitter inside the cell: the
+    JAX package's ``generate_grid_samples`` (probe values read in the
+    linear layout).  ``level`` [n] (int) and ``jitter`` [3, n] in [0, 1),
+    if given, replace the draws from ``generator``.
+
+    Returns (indices [n] int64 flat into [C*G^3], (x, y, z) [n] world
+    position components).
+    """
+    g = cfg.grid_size
+    dev = grid.device
+    if level is None:
+        level = torch.randint(0, cfg.max_cascade + 1, (n_samples,),
+                              generator=generator, device=dev)
+    if jitter is None:
+        jitter = torch.rand((3, n_samples), generator=generator, device=dev)
+    level = level.to(device=dev, dtype=torch.int64)
+    i = torch.arange(n_samples, dtype=torch.int64, device=dev)
+    idx_cand = _probe_cells(i, int(step), n_samples, cfg.n_cells) \
+        + level[:, None] * cfg.n_cells  # [n, 10]
+    ok = grid.reshape(-1)[idx_cand] > thresh
+    # The first passing probe, else the last one, as the CUDA loop takes.
+    first = torch.argmax(ok.to(torch.int32), dim=1)
+    pick = torch.where(ok.any(dim=1), first, torch.full_like(first, 9))
+    idx = torch.gather(idx_cand, 1, pick[:, None])[:, 0]
+
+    pos_idx = idx % cfg.n_cells
+    mip_scale = torch.exp2(level.to(torch.float32))
+    comps = (pos_idx // (g * g), (pos_idx // g) % g, pos_idx % g)
+    xyz = tuple(((c.to(torch.float32) + jitter[d]) / g - 0.5) * mip_scale + 0.5
+                for d, c in enumerate(comps))
+    return idx, xyz
+
+
+def splat_density(indices, raw_density, grid_tmp, cfg: GridConfig):
+    """Max-splat the exp-activated densities, scaled by the minimum step
+    size, into ``grid_tmp`` at ``indices``: the reference's atomicMax as a
+    deterministic scatter-max
+    (`splat_grid_samples_nerf_max_nearest_neighbor.h:5-23`)."""
+    thickness = network_to_density(raw_density.reshape(-1)) * cfg.stepsize
+    flat = grid_tmp.reshape(-1).scatter_reduce(0, indices, thickness,
+                                              reduce="amax")
+    return flat.reshape(grid_tmp.shape)
 
 
 def ema_grid_update(grid, grid_tmp, cfg: GridConfig):

@@ -10,8 +10,11 @@ validate_mesh}``, ``--save_dir``, ``--type {novel_view,mesh}``,
 otherwise the config's sampler and model types decide), plus ``--device``
 (``cuda``, the default, refuses to run without a card; ``cpu`` runs every
 kernel's plain twin).  ``train``, ``test`` and ``render`` drive the port's
-`Runner`; the NeuS, Mip-NeRF and Plenoxels runners and ``validate_mesh``
-are not ported yet and exit with a message.  Where the JAX CLI prints its
+`Runner` (NGP and vanilla NeRF); ``--type mesh`` (or ``runner =
+"NeuSRunner"``) selects `NeuSRunner`, whose ``train`` and
+``validate_mesh`` (world space, 512^3, ``--mcube_threshold``) it runs.
+The Mip-NeRF and Plenoxels runners are not ported yet and exit with a
+message.  Where the JAX CLI prints its
 backend, this prints the card's name and power limit.
 """
 
@@ -20,7 +23,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 
-NOT_PORTED = ("NeuSRunner", "MipRunner", "Svox2Runner")
+NOT_PORTED = ("MipRunner", "Svox2Runner")
 
 
 def select_runner_name(cfg, type_arg: str) -> str:
@@ -79,7 +82,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Run one task; returns (the runner, what the task returned: the test
-    PSNR for train and test, the mp4's path for render)."""
+    PSNR for Runner's train and test, the mp4's path for render, the PLY's
+    path for validate_mesh)."""
     args = parse_args(argv)
     if not args.config_file:
         raise SystemExit("--config-file is required")
@@ -88,17 +92,31 @@ def main(argv=None):
 
     init_cfg(args.config_file)
     name = args.runner or select_runner_name(get_cfg(), args.type)
-    if name in NOT_PORTED or args.task == "validate_mesh":
-        what = name if name in NOT_PORTED else "the validate_mesh task"
-        raise SystemExit(f"{what} is not ported to jnerf_tpu_torch yet "
+    if name in NOT_PORTED:
+        raise SystemExit(f"{name} is not ported to jnerf_tpu_torch yet "
                          "(ROADMAP.md, queue 1); use tools/run_net.py")
-    if name != "Runner":
-        raise SystemExit(f"unknown runner {name!r} (config key 'runner')")
-    from jnerf_tpu_torch.runner import Runner
+    if name == "NeuSRunner":
+        from jnerf_tpu_torch.runner import NeuSRunner
 
-    runner = Runner(device=args.device)
+        runner = NeuSRunner(is_continue=(args.task == "validate_mesh"),
+                            device=args.device)
+    elif name == "Runner":
+        from jnerf_tpu_torch.runner import Runner
+
+        runner = Runner(device=args.device)
+    else:
+        raise SystemExit(f"unknown runner {name!r} (config key 'runner')")
+
     if args.task == "train":
         out = runner.train()
+    elif args.task == "validate_mesh":
+        if not hasattr(runner, "validate_mesh"):
+            raise SystemExit(f"{name} does not implement task 'validate_mesh'")
+        out = runner.validate_mesh(world_space=True, resolution=512,
+                                   threshold=args.mcube_threshold)
+        print(out, flush=True)
+    elif not hasattr(runner, args.task):
+        raise SystemExit(f"{name} does not implement task {args.task!r}")
     elif args.task == "test":
         out = runner.test(load_ckpt=True)
     else:

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import clear_cfgs, write_blender_cfg  # noqa: F401
+from torch_parity import (  # noqa: F401
+    clear_cfgs, write_blender_cfg, write_neus_cfg,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,17 +71,19 @@ def test_runner_choice_matches_the_jax_cli():
 
 def test_unported_tasks_and_missing_card_exit(tmp_path, synthetic_scene,
                                               clear_cfgs):
-    """The NeuS, Mip-NeRF and Plenoxels runners and validate_mesh exit with
-    a message; --device cuda without a card exits rather than falling back
-    to the CPU."""
+    """The Mip-NeRF and Plenoxels runners exit with a message, and so does
+    a task the chosen runner lacks (validate_mesh on the NGP Runner);
+    --device cuda without a card exits rather than falling back to the
+    CPU."""
     from jnerf_tpu_torch.tools import run_net
 
     path = write_blender_cfg(tmp_path, synthetic_scene)
-    for extra in (["--runner", "NeuSRunner"], ["--runner", "MipRunner"],
-                  ["--runner", "Svox2Runner"], ["--task", "validate_mesh"],
-                  ["--type", "mesh"]):
+    for extra in (["--runner", "MipRunner"], ["--runner", "Svox2Runner"]):
         with pytest.raises(SystemExit, match="not ported"):
             run_net.main(["--config-file", path, "--device", "cpu"] + extra)
+    with pytest.raises(SystemExit, match="does not implement task"):
+        run_net.main(["--config-file", path, "--device", "cpu", "--task",
+                      "validate_mesh"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA is not available"):
             run_net.main(["--config-file", path])
@@ -131,14 +135,63 @@ def test_train_test_render_on_cpu(tmp_path, clear_cfgs, monkeypatch, capsys,
     assert mp4 == str(out / "demo.mp4") and os.path.getsize(mp4) > 500
 
 
+def test_neus_train_and_validate_mesh_on_cpu(tmp_path, clear_cfgs,
+                                            monkeypatch, capsys, one_thread):
+    """--type mesh selects NeuSRunner: --task train on a tiny NeuS config
+    over a DTU-format scene the port writes (6 steps, a checkpoint at 4 and
+    6, report lines), then --task validate_mesh resumes from the latest
+    checkpoint and writes the world-space mesh.  The CLI asks for
+    resolution 512 and the --mcube_threshold, as tools/run_net.py does;
+    the test runs the extraction at 24 so that the CPU takes seconds."""
+    from jnerf_tpu_torch.dataset.synthetic import make_synthetic_neus_scene
+    from jnerf_tpu_torch.runner import NeuSRunner
+    from jnerf_tpu_torch.tools import run_net
+
+    scene = make_synthetic_neus_scene(str(tmp_path / "scan"), n_images=3,
+                                      H=16, W=20)
+    path = write_neus_cfg(tmp_path, scene, end_iter=6, save_freq=2)
+    argv = ["--config-file", path, "--device", "cpu", "--type", "mesh"]
+    runner, _ = run_net.main(argv + ["--task", "train"])
+    assert isinstance(runner, NeuSRunner) and runner.iter_step == 6
+    out = capsys.readouterr().out
+    assert "iter:       6 loss = " in out
+    ckpts = sorted(os.listdir(tmp_path / "exp" / "checkpoints"))
+    assert ckpts == ["ckpt_000002.pkl", "ckpt_000004.pkl", "ckpt_000006.pkl"]
+
+    asked = {}
+    orig = NeuSRunner.validate_mesh
+
+    def validate_mesh(self, world_space=False, resolution=64, threshold=0.0):
+        asked.update(world_space=world_space, resolution=resolution,
+                     threshold=threshold)
+        return orig(self, world_space, 24, threshold)
+
+    monkeypatch.setattr(NeuSRunner, "validate_mesh", validate_mesh)
+    again, ply = run_net.main(argv + ["--task", "validate_mesh",
+                                      "--mcube_threshold", "0.01"])
+    assert asked == dict(world_space=True, resolution=512, threshold=0.01)
+    assert again.iter_step == 6 and "Find checkpoint: ckpt_000006.pkl" in \
+        capsys.readouterr().out
+    assert ply == str(tmp_path / "exp" / "meshes_24" / "00000006.ply")
+    with open(ply, "rb") as f:
+        head = f.read(120)
+    assert head.startswith(b"ply\nformat binary_little_endian") \
+        and b"element vertex 0" not in head
+
+
 def test_user_path_imports_no_jax_or_imaging_library(tmp_path):
     """Importing the CLI, loading a NerfDataset and Runner.train() through a
-    validation render, the checkpoint and the test set (PNGs written) pull
-    in none of JAX, the JAX package, optax, yaml, PIL, imageio, cv2 or tqdm
+    validation render, the checkpoint and the test set (PNGs written), the
+    NGP mesh tool on that checkpoint, and NeuSRunner.train() through a
+    validation image (PNGs, the JET depth) and a validation mesh, pull in
+    none of JAX, the JAX package, optax, yaml, PIL, imageio, cv2 or tqdm
     (a fresh interpreter, beyond what torch itself imports): the machine
     with the card has none of them."""
     scene = str(tmp_path / "scene")
     cfg = write_blender_cfg(tmp_path, scene, steps=20)
+    neus_scene = str(tmp_path / "scan")
+    neus_cfg = write_neus_cfg(tmp_path / "neus", neus_scene, end_iter=3,
+                              val_freq=3, val_mesh_freq=3)
     code = f"""
 import sys
 import numpy, torch
@@ -154,6 +207,14 @@ assert NerfDataset({scene!r}, batch_size=8).n_images == 4
 init_cfg({cfg!r})
 Runner.val_freq, Runner.render_chunk_rays = 16, 64
 Runner(device="cpu").train()
+from jnerf_tpu_torch.tools import extract_mesh
+extract_mesh.mesh(["--config-file", {cfg!r}, "--resolution", "16",
+                   "--device", "cpu"])
+from jnerf_tpu_torch.dataset.synthetic import make_synthetic_neus_scene
+from jnerf_tpu_torch.runner import NeuSRunner
+make_synthetic_neus_scene({neus_scene!r}, n_images=2, H=8, W=12)
+init_cfg({neus_cfg!r})
+NeuSRunner(device="cpu").train()
 new = {{m.split(".")[0] for m in set(sys.modules) - before}}
 print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
                     "cv2", "imageio", "tqdm"}}))
@@ -163,6 +224,10 @@ print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert (tmp_path / "logs" / "lego" / "img16.png").is_file()
+    assert (tmp_path / "logs" / "lego" / "mesh-color.ply").is_file()
+    neus = tmp_path / "neus" / "exp"
+    assert len(os.listdir(neus / "depths")) == 1
+    assert (neus / "meshes_64" / "00000003.ply").is_file()
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 

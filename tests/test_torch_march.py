@@ -320,6 +320,10 @@ def test_sampler_state_dict_round_trip(both_cfgs):
 
 
 def test_probe_refresh_mode_raises(both_cfgs):
+    """The probe refresh is ported (tests/test_torch_probe.py); a refresh
+    mode that neither package has raises when the sampler is built."""
     both_cfgs[1].grid_update_mode = "probe"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert _samplers(both_cfgs)[1].grid_update_mode == "probe"
+    both_cfgs[1].grid_update_mode = "dense"
+    with pytest.raises(ValueError, match="'sweep' or 'probe'"):
         _samplers(both_cfgs)

@@ -20,6 +20,9 @@ import torch
 
 NGP_BASE = str(Path(__file__).resolve().parents[1]
                / "projects" / "ngp" / "configs" / "ngp_base.py")
+NEUS_WOMASK = str(Path(__file__).resolve().parents[1]
+                  / "projects" / "neus" / "configs" / "neus_womask.py")
+NEUS_RAYS = 64  # rays of a NeuS batch at the tests' size
 
 # A tiny NGP slice: 4 levels of 8 features over 2^13-entry tables, a 32^3
 # occupancy grid, 256 rays; compaction on, as in the bench headline.
@@ -192,3 +195,53 @@ def assert_one_step_matches(jr, tr, key=None, min_valid=1):
         assert diff.max() <= 2e-2 * scale, (name, diff.max() / scale)
         assert diff.mean() <= 1e-3 * scale, (name, diff.mean() / scale)
     return n_rays, n_samples
+
+
+def write_neus_cfg(tmp_path, scene, end_iter=4, **extra):
+    """A user's NeuS config: neus_womask.py over a DTU-format ``scene``,
+    shrunk to an SDF of 3 layers of 64 (skip at 2), a colour MLP of 2 x 32,
+    a 3 x 32 background NeRF (skip at 1) and batches of NEUS_RAYS rays of
+    16 + 16 + 4 samples; ``extra`` keys are appended."""
+    Path(tmp_path).mkdir(parents=True, exist_ok=True)
+    path = Path(tmp_path) / "neus_cfg.py"
+    lines = "".join(f"{k} = {v!r}\n" for k, v in extra.items())
+    path.write_text(textwrap.dedent(f"""\
+        _base_ = {NEUS_WOMASK!r}
+        dataset = dict(dataset_dir={str(scene)!r})
+        base_exp_dir = {str(Path(tmp_path) / "exp")!r}
+        end_iter = {end_iter}
+        batch_size = {NEUS_RAYS}
+        warm_up_end = 2
+        anneal_end = 8
+        val_freq = 100000
+        val_mesh_freq = 100000
+        save_freq = 100000
+        report_freq = 2
+        validate_resolution_level = 4
+        seed = 0
+        model = dict(
+            nerf_network=dict(D=3, W=32, skips=[1]),
+            sdf_network=dict(d_out=65, d_hidden=64, n_layers=3, skip_in=[2]),
+            rendering_network=dict(d_feature=64, d_hidden=32, n_layers=2))
+        render = dict(n_samples=16, n_importance=16, n_outside=4,
+                      up_sample_steps=2, perturb=1.0, _cover_=True,
+                      type="NeuSRenderer")
+    """) + lines)
+    return str(path)
+
+
+def read_ply(path):
+    """A binary PLY of `ops.marching.write_ply` -> (vertex records with
+    "xyz" f32 [3] and, if coloured, "rgb" uint8 [3]; faces [F, 3] int32)."""
+    data = Path(path).read_bytes()
+    head, body = data.split(b"end_header\n", 1)
+    nv = int(head.split(b"element vertex ")[1].split(b"\n")[0])
+    nf = int(head.split(b"element face ")[1].split(b"\n")[0])
+    color = b"property uchar red" in head
+    rec = np.dtype([("xyz", np.float32, 3)]
+                   + ([("rgb", np.uint8, 3)] if color else []))
+    verts = np.frombuffer(body[:rec.itemsize * nv], rec)
+    faces = np.frombuffer(body[rec.itemsize * nv:],
+                          [("n", np.uint8), ("idx", np.int32, 3)])
+    assert len(faces) == nf and (faces["n"] == 3).all()
+    return verts, faces["idx"]
