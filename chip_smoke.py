@@ -73,14 +73,28 @@ on failure:
    with 257 outputs, background NeRF 8 x 256, colour 4 x 256; 512 rays of
    64 + 64 + 32 samples) through the CLI (--type mesh) on a DTU-format
    scene of 32 images of 400 x 300 written by the port: the
-   geometric-init mesh at 128^3, --task train for 1500 steps (a checkpoint
+   geometric-init mesh at 128^3, --task train for 1000 steps (a checkpoint
    at the end; f32, TF32 off), then --task validate_mesh at 512^3.  The
    colour loss of the last 100 steps must be at most half that of the
    first 100, the eikonal term finite, and the trained mesh's vertices
    closer to the analytic object, on average, than the init mesh's; no
-   repo kernel runs.
+   repo kernel runs;
+13. Mip-NeRF: projects/mipnerf/configs/mip_base.py at full width (8 x 256
+   trunk, skip after layer 4, 1 x 128 colour branch, 2 levels x 128
+   samples, 4096 rays; f32, TF32 off) through the CLI on phase 8's scene:
+   one shrunk step on the card against the CPU, --task train for 512
+   steps, then --task test from params.pkl, whose PSNR must clear that of
+   predicting black everywhere by 3 dB; no repo kernel runs;
+14. Plenoxels: projects/svox2/configs/svox2_base.py at full width (256^3,
+   basis 9, 5000 rays, step 0.5) through the CLI on phase 8's scene: a
+   dense and a sparse small step on the card against the CPU, then 512
+   dense steps at 256^3 (the test PSNR must clear the all-white
+   background's by 1 dB), the upsample to a sparse 512^3 grid and 128
+   sparse steps (the active cells and the tables' size bounded, the MSE
+   below 0.2), and the grid's .npz saved, timed and loaded back; no repo
+   kernel runs.
 
-Each of phases 9-12 prints its time and its peak device memory.
+Each of phases 9-14 prints its time and its peak device memory.
 
 The last lines are the kernel table as JSON (each kernel with its bound:
 the larger of its bytes over the memory rate and its operations over the
@@ -163,11 +177,24 @@ VANILLA_STEPS = 1024
 VANILLA_LR = 5e-4
 VANILLA_PSNR_OVER_BG = 3.0
 # Phase 12: NeuS (neus_womask.py) on a DTU-format scene of the port's.
-# 1500 of the config's 100,000 steps (over 2000 steps on an H100 the
-# colour loss fell from 1.081 to 0.025, its pass bar being half).
-NEUS_STEPS = 1500
+# 1000 of the config's 100,000 steps, cut from 1500 with phase 13 for the
+# script's time (over 1500 steps on an H100 the colour loss fell from 1.081
+# to 0.025, its pass bar being half).
+NEUS_STEPS = 1000
 NEUS_IMAGES, NEUS_H, NEUS_W = 32, 300, 400
 NEUS_INIT_RES = 128
+# Phase 13: Mip-NeRF (mip_base.py) on phase 8's scene, 512 of its 40,001
+# steps: with 1024, and NeuS at 1500, the script took 818.0 s on an H100,
+# over its ~700 s aim (PERF.md section 6).
+MIP_STEPS = 512
+MIP_PSNR_OVER_BLACK = 3.0
+MIP_SMALL_RTOL = 1e-4
+# Phase 14: Plenoxels (svox2_base.py) on phase 8's scene: 512 dense steps
+# at 256^3, then 128 sparse at 512^3.
+SVOX_ITERS, SVOX_UPSAMP = 640, 512
+SVOX_PSNR_OVER_WHITE = 1.0
+SVOX_SPARSE_MSE = 0.2
+SVOX_SMALL_RTOL = 1e-4
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1469,6 +1496,394 @@ def run_neus(torch, run_net, counters, tmp):
                 init_mean_abs_sdf=init_d, phase_s=secs, peak_mib=peak)
 
 
+def write_cfg(path, base, body):
+    """A user's config file: ``_base_`` = projects/<base> and ``body``."""
+    full = Path(__file__).resolve().parent / "projects" / base
+    Path(path).write_text(f"_base_ = {str(full)!r}\n" + textwrap.dedent(body))
+    return path
+
+
+def grad_diffs(grads, ref):
+    """Per tensor (name, max |diff|, mean |diff|), each over the reference
+    gradient's largest entry."""
+    out = []
+    for k, r in ref.items():
+        d = (grads[k].cpu() - r).abs()
+        scale = float(r.abs().max())
+        out.append((k, float(d.max()) / scale, float(d.mean()) / scale))
+    return out
+
+
+def check_mip_small_step(torch, scene, tmp):
+    """One step of a shrunk mip_base.py (256 rays, 32 samples a level, a 4 x
+    64 trunk) on the card and on the CPU from the same weights, batch and
+    draws: the loss at rtol MIP_SMALL_RTOL, each gradient's mean |diff|
+    within MIP_SMALL_RTOL of its largest entry (f32 on both sides; the
+    sums run in other orders and the IPE's sin of arguments up to ~10^3
+    rounds differently), the largest printed."""
+    from jnerf_tpu_torch.ops.mip import F32_EPS
+    from jnerf_tpu_torch.runner import MipRunner
+    from jnerf_tpu_torch.utils.config import init_cfg
+
+    cfg = write_cfg(os.path.join(tmp, "cfg_mip_small.py"),
+                    "mipnerf/configs/mip_base.py", f"""\
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root_dir=dataset_dir, batch_size=256),
+                       val=dict(root_dir=dataset_dir, batch_size=256),
+                       test=dict(root_dir=dataset_dir, batch_size=256))
+        log_dir = {os.path.join(tmp, "logs_mip_small")!r}
+        num_samples = 32
+        net_depth = 4
+        net_width = 64
+        net_width_condition = 32
+        seed = 0
+    """)
+    init_cfg(cfg)
+    gpu, cpu = MipRunner(device="cuda"), MipRunner(device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    rays, rgb = next(cpu.dataset["train"])
+    gen = torch.Generator().manual_seed(1)
+    draws = [{"u": torch.rand((256, 33), generator=gen)},
+             {"u": torch.rand((256, 33), generator=gen) * (1 / 33 - F32_EPS)}]
+    out = []
+    for r in (gpu, cpu):
+        dev = r.device
+        r.model.zero_grad(set_to_none=True)
+        loss, _ = r.forward_loss(
+            type(rays)(*(x.to(dev) for x in rays)), rgb.to(dev),
+            [{"u": d["u"].to(dev)} for d in draws])
+        loss.backward()
+        out.append((float(loss.detach()), {
+            k: p.grad.cpu() for k, p in r.model.named_parameters()}))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    worst = grad_diffs(g_gpu, g_cpu)
+    print(f"Mip-NeRF small step card vs CPU (256 x 2 x 32, 4 x 64): loss "
+          f"{l_gpu:.7f} vs {l_cpu:.7f}; grads max/mean "
+          f"{max(a for _, a, _ in worst):.2e} / "
+          f"{max(b for _, _, b in worst):.2e}", flush=True)
+    if not abs(l_gpu - l_cpu) <= MIP_SMALL_RTOL * l_cpu:
+        raise SystemExit("the card's Mip-NeRF step loss disagrees with the "
+                         "CPU's")
+    if any(b > MIP_SMALL_RTOL for _, _, b in worst):
+        raise SystemExit(f"the card's Mip-NeRF gradients disagree: {worst}")
+
+
+def run_mip(torch, run_net, counters, scene, tmp):
+    """Phase 13: projects/mipnerf/configs/mip_base.py at full width (8 x 256
+    trunk, skip after layer 4, 1 x 128 colour branch, 2 levels x 128
+    samples, 4096 rays; f32, TF32 off) through the CLI on phase 8's 256^2
+    scene: the small card-vs-CPU step, then --task train for MIP_STEPS of
+    the config's 40,001 steps (the one cut: the run's time), then --task
+    test from params.pkl, whose PSNR must clear that of predicting black
+    everywhere (the config's background) by MIP_PSNR_OVER_BLACK dB.  No
+    repo kernel runs on this path."""
+    import numpy as np
+
+    from jnerf_tpu_torch.runner import MipRunner
+
+    t_phase = phase_start(torch)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 matmuls are on: Mip-NeRF runs in f32")
+    check_mip_small_step(torch, scene, tmp)
+    cfg = write_cfg(os.path.join(tmp, "cfg_mip.py"),
+                    "mipnerf/configs/mip_base.py", f"""\
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root_dir=dataset_dir),
+                       val=dict(root_dir=dataset_dir),
+                       test=dict(root_dir=dataset_dir))
+        log_dir = {os.path.join(tmp, "logs_mip")!r}
+        tot_train_steps = {MIP_STEPS}
+    """)
+    losses, train_s = [], [0.0]
+    orig_step, orig_train = MipRunner.train_step, MipRunner.train
+
+    def train_step(self, *a, **k):
+        out = orig_step(self, *a, **k)
+        losses.append(out[0])
+        return out
+
+    def train(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_train(self)
+        torch.cuda.synchronize()
+        train_s[0] = time.perf_counter() - t0
+        return out
+
+    argv = ["--config-file", cfg, "--device", "cuda"]
+    reset_counts(counters)
+    MipRunner.train_step, MipRunner.train = train_step, train
+    try:
+        runner, last = run_net.main(argv + ["--task", "train"])
+    finally:
+        MipRunner.train_step, MipRunner.train = orig_step, orig_train
+    train_peak = torch.cuda.max_memory_allocated() / 2**20
+    hist = torch.stack(losses).cpu()
+    net, s = runner.model, runner.sampler
+    trunk = [tuple(layer.w.shape) for layer in net.trunk]
+    cond = [tuple(layer.w.shape) for layer in net.condition]
+    del runner
+    t0 = time.perf_counter()
+    again, psnr = run_net.main(argv + ["--task", "test"])
+    test_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    ds = again.dataset["test"]
+    black = float(np.mean([
+        -10 * np.log10(float(((ds.image(i)[..., :3] * ds.image(i)[..., 3:])
+                              ** 2).mean())) for i in range(ds.n_images)]))
+    first, end = float(hist[:64].mean()), float(hist[-64:].mean())
+    print(f"Mip-NeRF (mip_base.py): trunk {trunk}, condition {cond}, "
+          f"{again.num_levels} levels x {s.num_samples} samples, "
+          f"{again.dataset['train'].batch_size} rays, lr "
+          f"{again.schedule_wrap.init_lr} (at step {MIP_STEPS}: "
+          f"{again.schedule_wrap.schedule(MIP_STEPS):.3e}); {len(losses)} "
+          f"steps in {train_s[0]:.3f} s = {len(losses) / train_s[0]:.3f} "
+          f"steps/s, peak memory {train_peak:.1f} MiB; loss first 64 "
+          f"{first:.5f}, last 64 {end:.5f}, last {last:.5f}; --task test "
+          f"({ds.n_images} images, {test_s:.3f} s, iter {again.start}): TOTAL "
+          f"TEST PSNR {psnr:.3f} dB, black alone {black:.3f} dB; kernel "
+          f"launches {counts}, on {card_line()}", flush=True)
+    if len(trunk) != 8 or trunk[0] != (48, 256) or trunk[5] != (304, 256) \
+            or cond != [(283, 128)] or s.num_samples != 128 \
+            or again.dataset["train"].batch_size != 4096:
+        raise SystemExit(f"mip_base.py did not build its full width: {trunk}")
+    if len(losses) != MIP_STEPS or again.start != MIP_STEPS \
+            or not bool(torch.isfinite(hist).all()):
+        raise SystemExit(f"Mip-NeRF ran {len(losses)} steps (test read "
+                         f"{again.start}), losses finite "
+                         f"{bool(torch.isfinite(hist).all())}")
+    if any(counts.values()):
+        raise SystemExit(f"Mip-NeRF launched a repo kernel: {counts}")
+    if not psnr >= black + MIP_PSNR_OVER_BLACK:
+        raise SystemExit(f"Mip-NeRF test PSNR {psnr:.3f} dB is not "
+                         f"{MIP_PSNR_OVER_BLACK} dB over black's {black:.3f}")
+    secs, peak = phase_end(torch, "Mip-NeRF", t_phase)
+    return dict(steps=MIP_STEPS, steps_per_s=MIP_STEPS / train_s[0],
+                psnr=psnr, black_psnr=black, loss_first=first, loss_last=end,
+                phase_s=secs, peak_mib=peak)
+
+
+def white_psnr(np, ds):
+    """Mean PSNR of predicting white everywhere over a test split."""
+    out = []
+    for i in range(ds.n_images):
+        tar = ds.image(i)
+        tar = tar[..., :3] * tar[..., 3:] + (1 - tar[..., 3:])
+        out.append(-10 * np.log10(float(((tar - 1) ** 2).mean())))
+    return float(np.mean(out))
+
+
+def check_svox2_small_steps(torch, scene, tmp):
+    """One dense step at reso 24 and, after an upsample to 48^3 past a
+    threshold of 30,000 cells, one sparse step (its TV rows passed in), on
+    the card and on the CPU from the same random grid and batch: the MSE
+    at rtol SVOX_SMALL_RTOL and each table's gradient within
+    SVOX_SMALL_RTOL of its largest entry (the corner scatter sums in the
+    atomics' order on the card), and equal links."""
+    import numpy as np
+
+    from jnerf_tpu_torch.runner import Svox2Runner
+    from jnerf_tpu_torch.utils.config import init_cfg
+
+    cfg = write_cfg(os.path.join(tmp, "cfg_svox2_small.py"),
+                    "svox2/configs/svox2_base.py", f"""\
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root=dataset_dir, split='train'),
+                       test=dict(root=dataset_dir, split='test'))
+        log_dir = {os.path.join(tmp, "logs_svox2_small")!r}
+        model = dict(reso=24, radius=1.3)
+        reso_list = [[24] * 3, [48] * 3]
+        sparse_cell_threshold = 30000
+        density_thresh = 2.4
+        sparse_dilate = 1
+        batch_size = 512
+    """)
+    init_cfg(cfg)
+    gpu, cpu = Svox2Runner(device="cuda"), Svox2Runner(device="cpu")
+    rng = np.random.default_rng(0)
+    d = torch.from_numpy(rng.uniform(0, 3, (24,) * 3).astype(np.float32))
+    s = torch.from_numpy((rng.normal(size=(24,) * 3 + (27,)) * 0.3)
+                         .astype(np.float32))
+    for r in (gpu, cpu):
+        with torch.no_grad():
+            r.grid.density.copy_(d)
+            r.grid.sh.copy_(s)
+    report = []
+    for mode in ("dense", "sparse"):
+        if mode == "sparse":
+            for r in (gpu, cpu):
+                r.upsample((48, 48, 48))
+            if not torch.equal(gpu.grid.links.cpu(), cpu.grid.links):
+                raise SystemExit("the card's sparse links differ")
+        ro, rd, rgb = cpu.dataset["train"].next_batch(512)
+        cap = cpu.grid.cells.shape[0] if mode == "sparse" else 1
+        gen = torch.Generator().manual_seed(2)
+        rows = (torch.randint(0, cap, (1 << 18,), generator=gen),
+                torch.randint(0, cap, (1 << 16,), generator=gen))
+        out = []
+        for r in (gpu, cpu):
+            dev = r.device
+            mse = r.train_step(ro.to(dev), rd.to(dev), rgb.to(dev), 0.3, 1e-2,
+                               tv_rows=tuple(x.to(dev) for x in rows))
+            out.append((float(mse), {k: p.grad.cpu() for k, p in
+                                     r.grid.tables().items()}))
+        (m_gpu, g_gpu), (m_cpu, g_cpu) = out
+        worst = grad_diffs(g_gpu, g_cpu)
+        report.append(f"{mode}: MSE {m_gpu:.7f} vs {m_cpu:.7f}, grads max "
+                      f"{max(a for _, a, _ in worst):.2e}")
+        if not abs(m_gpu - m_cpu) <= SVOX_SMALL_RTOL * m_cpu \
+                or any(a > SVOX_SMALL_RTOL for _, a, _ in worst):
+            raise SystemExit(f"the card's {mode} Plenoxels step disagrees "
+                             f"with the CPU's: {report[-1]}")
+    print("Plenoxels small steps card vs CPU (reso 24, 512 rays): "
+          + "; ".join(report), flush=True)
+
+
+def run_svox2(torch, run_net, counters, scene, tmp):
+    """Phase 14: projects/svox2/configs/svox2_base.py at full width (256^3,
+    basis 9, 5000 rays, step 0.5 voxel: 887 samples a ray dense and 1774
+    sparse, the config's TV weights and rates) through the CLI on phase 8's
+    scene, after the small card-vs-CPU steps.  Cuts, each for the run's
+    time: n_iters 640 of 128,000 and upsamp_every 512 of 38,400, so that
+    512 dense steps run at 256^3 and 128 sparse steps at 512^3.  The sigma
+    learning rate's delay is off, as lr_sigma_delay_steps = 0 asks (the
+    JAX package's svox2 tests set it): both packages read a 0 there as the
+    default 15,000 (ROADMAP.md section 3), so the delay's multiplier is set
+    to 1 as well.  density_thresh is the config's 5.0 unless no cell of
+    the trained 256^3 grid reaches it; then it is lowered to the grid's
+    99th-percentile density, printed.  Pass: after the dense steps the
+    test PSNR clears the all-white background's by SVOX_PSNR_OVER_WHITE
+    dB; after the upsample 0 < n_active < 512^3 / 4 and cap * 28 * 4 < 6e9
+    (as in tests/test_svox2.py); the sparse MSE is finite and below
+    SVOX_SPARSE_MSE; the .npz round trip holds density_data within f16's
+    rounding (atol 2e-3, rtol 2^-11).  No repo kernel runs on this path."""
+    import numpy as np
+
+    from jnerf_tpu_torch.models.networks import SparseGrid
+    from jnerf_tpu_torch.runner import Svox2Runner
+
+    t_phase = phase_start(torch)
+    check_svox2_small_steps(torch, scene, tmp)
+    cfg = write_cfg(os.path.join(tmp, "cfg_svox2.py"),
+                    "svox2/configs/svox2_base.py", f"""\
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root=dataset_dir, split='train'),
+                       test=dict(root=dataset_dir, split='test'))
+        log_dir = {os.path.join(tmp, "logs_svox2")!r}
+        n_iters = {SVOX_ITERS}
+        upsamp_every = {SVOX_UPSAMP}
+        lr_sigma_delay_steps = 0
+        lr_sigma_delay_mult = 1.0
+    """)
+    marks = {}
+    orig_train, orig_up = Svox2Runner.train, SparseGrid.upsample
+
+    def upsample(self, new_reso):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_up(self, new_reso)
+        torch.cuda.synchronize()
+        marks["upsample_s"] = time.perf_counter() - t0
+
+    def train(self, n_iters=None):
+        # The config's single run, cut where the upsample falls so that
+        # the dense grid can be scored: the same steps in the same order.
+        n_iters = n_iters or self.n_iters
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks["dense_mse"] = orig_train(self, self.upsamp_every)
+        marks["dense_s"] = time.perf_counter() - t0
+        marks["dense_peak"] = torch.cuda.max_memory_allocated() / 2**20
+        marks["dense_samples"] = self.grid.n_samples_for(self.step_size)
+        marks["dense_reso"] = self.grid.spec.reso
+        marks["psnr"] = self.eval_psnr()
+        dens = self.grid.density.detach().reshape(-1)
+        marks["max_density"] = float(dens.max())
+        if marks["max_density"] <= self.grid.density_thresh:
+            self.grid.density_thresh = float(
+                torch.topk(dens, dens.numel() // 100).values[-1])
+            marks["lowered"] = self.grid.density_thresh
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mse = orig_train(self, n_iters - self.upsamp_every)
+        torch.cuda.synchronize()
+        marks["sparse_s"] = time.perf_counter() - t0
+        marks["sparse_peak"] = torch.cuda.max_memory_allocated() / 2**20
+        return mse
+
+    reset_counts(counters)
+    Svox2Runner.train, SparseGrid.upsample = train, upsample
+    try:
+        runner, mse = run_net.main(["--config-file", cfg, "--device", "cuda",
+                                    "--task", "train"])
+    finally:
+        Svox2Runner.train, SparseGrid.upsample = orig_train, orig_up
+    counts = read_counts(counters)
+    grid = runner.grid
+    white = white_psnr(np, runner.dataset["test"])
+    n_active = int((grid.cells >= 0).sum())
+    cap = int(grid.cells.shape[0])
+    t0 = time.perf_counter()
+    path = runner.save()
+    save_s = time.perf_counter() - t0
+    before = grid.density_data.detach().clone()
+    t0 = time.perf_counter()
+    runner.load(path)
+    load_s = time.perf_counter() - t0
+    n = int(grid.links.max()) + 1
+    got = grid.density_data.detach()[:n]
+    npz_err = float((got - before[:n]).abs().max())
+    npz_ok = bool(((got - before[:n]).abs()
+                   <= 2e-3 + 2.0 ** -11 * before[:n].abs()).all())
+    dense_steps = SVOX_UPSAMP
+    sparse_steps = SVOX_ITERS - SVOX_UPSAMP
+    lowered = marks.get("lowered")
+    print(f"Plenoxels (svox2_base.py): {dense_steps} dense steps at "
+          f"{marks['dense_reso']} "
+          f"({marks['dense_samples']} samples a ray) in "
+          f"{marks['dense_s']:.3f} s = {dense_steps / marks['dense_s']:.3f} "
+          f"steps/s, peak memory {marks['dense_peak']:.1f} MiB, MSE "
+          f"{marks['dense_mse']:.5f}; test PSNR {marks['psnr']:.3f} dB, white "
+          f"alone {white:.3f} dB; largest density {marks['max_density']:.4f}, "
+          f"density_thresh "
+          + (f"lowered to {lowered:.5f}" if lowered is not None
+             else f"{grid.density_thresh}")
+          + f"; upsample to {grid.spec.reso} in {marks['upsample_s']:.3f} s: "
+          f"{n_active} active cells (cap {cap}, {cap * 28 * 4 / 1e9:.3f} GB); "
+          f"{sparse_steps} sparse steps ({grid.n_samples_for(runner.step_size)}"
+          f" samples a ray) in {marks['sparse_s']:.3f} s = "
+          f"{sparse_steps / marks['sparse_s']:.3f} steps/s incl. the upsample, "
+          f"peak memory {marks['sparse_peak']:.1f} MiB, last MSE {mse:.5f}; "
+          f".npz save {save_s:.3f} s ({os.path.getsize(path) / 2**20:.1f} MiB), "
+          f"load {load_s:.3f} s, density_data max |diff| {npz_err:.2e}; "
+          f"kernel launches {counts}, on {card_line()}", flush=True)
+    if runner.gstep != SVOX_ITERS or not grid.sparse \
+            or marks["dense_reso"] != (256, 256, 256) \
+            or grid.spec.reso != (512, 512, 512) or grid.spec.basis_dim != 9 \
+            or runner.batch_size != 5000:
+        raise SystemExit(f"Plenoxels ran {runner.gstep} steps, ended at "
+                         f"{grid.spec}, sparse {grid.sparse}")
+    if not marks["psnr"] >= white + SVOX_PSNR_OVER_WHITE:
+        raise SystemExit(f"Plenoxels dense test PSNR {marks['psnr']:.3f} dB "
+                         f"is not {SVOX_PSNR_OVER_WHITE} dB over white's "
+                         f"{white:.3f}")
+    if not (0 < n_active < 512 ** 3 // 4 and cap * 28 * 4 < 6e9):
+        raise SystemExit(f"the sparse grid holds {n_active} cells, cap {cap}")
+    if not (np.isfinite(mse) and mse < SVOX_SPARSE_MSE):
+        raise SystemExit(f"the sparse MSE is {mse}")
+    if not npz_ok:
+        raise SystemExit(f"the .npz round trip moved density_data by "
+                         f"{npz_err}")
+    if any(counts.values()):
+        raise SystemExit(f"Plenoxels launched a repo kernel: {counts}")
+    secs, peak = phase_end(torch, "Plenoxels", t_phase)
+    return dict(dense_steps_per_s=dense_steps / marks["dense_s"],
+                sparse_steps_per_s=sparse_steps / marks["sparse_s"],
+                psnr=marks["psnr"], white_psnr=white, n_active=n_active,
+                cap=cap, save_s=save_s, phase_s=secs, peak_mib=peak)
+
+
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source and the g++ build of the host-side
     marching tetrahedra, started together."""
@@ -1594,8 +2009,9 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-12 (the CLI, the xor kernels, the probe refresh, the mesh
-    tool, vanilla NeRF and NeuS) in ``tmp``; returns the kernels line."""
+    """Phases 8-14 (the CLI, the xor kernels, the probe refresh, the mesh
+    tool, vanilla NeRF, NeuS, Mip-NeRF and Plenoxels) in ``tmp``; returns
+    the kernels line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -1622,6 +2038,8 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     run_vanilla_nerf(torch, run_net, counters, mse2psnr, scene,
                      cli["linear_rows"]["bg_psnr"], tmp)
     run_neus(torch, run_net, counters, tmp)
+    run_mip(torch, run_net, counters, scene, tmp)
+    run_svox2(torch, run_net, counters, scene, tmp)
 
     head = "step f8l4@2^19"
     others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")

@@ -1,0 +1,335 @@
+"""Voxel-grid sampling and rendering for the Plenoxels family.
+
+Counterpart of `jnerf_tpu/ops/voxel_grid.py`, function by function.  The
+function is ported, not the TPU layout: the JAX code concatenates density
+and SH into one [X, Y, Z, 28] grid at every call (a 1.9 GB copy a step at
+256^3) to gather 28-channel rows; here the two tables are gathered apart
+with the same corner indices and weights, which gives the same values.
+
+The 8-corner trilinear gather is one autograd function, `corner_gather`:
+its forward sums ``w_c * table[idx_c]`` over the corners in the JAX code's
+order, and its backward scatters all 8 corners' ``w_c * g`` into each
+table's gradient with one ``index_add_`` (with plain indexing, autograd
+would build one full-size gradient table per corner: eight 1.8 GB SH
+tables at 256^3), leaving out the corners of weight 0.
+
+The sparse grid keeps svox2's ``links`` indirection: a [X, Y, Z] int32
+volume (-1 = empty) indexes capacity-bounded ``density_data`` /
+``sh_data`` tables, and ``cells`` maps each table row back to its flat cell
+(-1 for padding).  ``build_sparse`` builds them on the tables' device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+SH_C0 = 0.28209479177387814
+SH_C1 = 0.4886025119029199
+SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+         -1.0925484305920792, 0.5462742152960396)
+CAP_QUANTUM = 1 << 15  # sparse tables are padded to a multiple of this
+
+
+def eval_sh_basis(basis_dim: int, dirs):
+    """Real SH basis values for unit dirs [N, 3] -> [N, basis_dim]
+    (svox2's hard-coded basis)."""
+    if basis_dim not in (1, 4, 9):
+        raise ValueError(f"basis_dim {basis_dim}")
+    out = [torch.full(dirs.shape[:-1], SH_C0, dtype=dirs.dtype,
+                      device=dirs.device)]
+    if basis_dim > 1:
+        x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+        out += [-SH_C1 * y, SH_C1 * z, -SH_C1 * x]
+    if basis_dim > 4:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        out += [
+            SH_C2[0] * xy,
+            SH_C2[1] * yz,
+            SH_C2[2] * (2.0 * zz - xx - yy),
+            SH_C2[3] * xz,
+            SH_C2[4] * (xx - yy),
+        ]
+    return torch.stack(out, dim=-1)
+
+
+@dataclass(frozen=True)
+class VoxelGridSpec:
+    reso: tuple  # (X, Y, Z)
+    basis_dim: int = 9
+
+    @property
+    def n_cells(self):
+        return self.reso[0] * self.reso[1] * self.reso[2]
+
+    @property
+    def sh_channels(self):
+        return 3 * self.basis_dim
+
+
+def sparse_capacity(n: int) -> int:
+    """Rows of a sparse table holding ``n`` active cells."""
+    return -(-max(n, 1) // CAP_QUANTUM) * CAP_QUANTUM
+
+
+class _CornerGather(torch.autograd.Function):
+    """out_t[n] = sum_c w[n, c] * table_t[idx[n, c]] for each table t,
+    differentiated with respect to the tables (as the JAX runner's step
+    is), not to the weights."""
+
+    @staticmethod
+    def forward(ctx, idx, w, *tables):
+        ctx.save_for_backward(idx, w)
+        ctx.shapes = [table.shape for table in tables]
+        outs = []
+        for table in tables:
+            out = 0.0
+            for c in range(idx.shape[1]):
+                out = out + w[:, c, None] * table[idx[:, c]]
+            outs.append(out)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        idx, w = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("corner_gather: no gradient for w")
+        # Corners of weight 0 add nothing: the sparse grid's empty corners
+        # all point at row 0, and scattering them there serializes the
+        # atomics of most of a step's corners on one row.
+        live = torch.nonzero(w.reshape(-1)).squeeze(1)
+        rows, w_live = idx.reshape(-1)[live], w.reshape(-1)[live, None]
+        sample = live // idx.shape[1]
+        g_tables = []
+        for k, (shape, g) in enumerate(zip(ctx.shapes, grads)):
+            if not ctx.needs_input_grad[2 + k]:
+                g_tables.append(None)
+                continue
+            g_tables.append(g.new_zeros(shape).index_add_(
+                0, rows, w_live * g[sample]))
+        return (None, None, *g_tables)
+
+
+def corner_gather(idx, w, *tables):
+    """Trilinear gather of [n_rows, C_t] tables at corner rows ``idx``
+    [N, 8] with weights ``w`` [N, 8]; returns one [N, C_t] per table."""
+    return _CornerGather.apply(idx, w, *tables)
+
+
+def corners(spec: VoxelGridSpec, pos):
+    """Flat cell ids [N, 8] and trilinear weights [N, 8] of grid-space
+    positions [N, 3], corners clamped to the grid (svox2 clamps at
+    borders)."""
+    X, Y, Z = spec.reso
+    dev = pos.device
+    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=dev)
+    p = torch.clamp(pos, min=torch.zeros_like(hi), max=hi)
+    g0f = torch.floor(torch.clamp(p, min=torch.zeros_like(hi), max=hi - 1))
+    fr = p - g0f
+    g0 = g0f.to(torch.int64)
+    idx, w = [], []
+    for c in range(8):
+        dx, dy, dz = c & 1, (c >> 1) & 1, (c >> 2) & 1
+        idx.append(((g0[:, 0] + dx) * Y + (g0[:, 1] + dy)) * Z + (g0[:, 2] + dz))
+        w.append((fr[:, 0] if dx else 1 - fr[:, 0])
+                 * (fr[:, 1] if dy else 1 - fr[:, 1])
+                 * (fr[:, 2] if dz else 1 - fr[:, 2]))
+    return torch.stack(idx, 1), torch.stack(w, 1)
+
+
+def trilinear_sample(spec: VoxelGridSpec, density, sh, pos):
+    """Sample density [X, Y, Z] and SH [X, Y, Z, C] at grid-space positions
+    [N, 3] (0..reso-1); returns (sigma [N], sh_coeffs [N, C])."""
+    idx, w = corners(spec, pos)
+    sigma, sh_c = corner_gather(idx, w, density.reshape(spec.n_cells, 1),
+                                sh.reshape(spec.n_cells, -1))
+    return sigma[:, 0], sh_c
+
+
+def trilinear_sample_sparse(spec: VoxelGridSpec, links, density_data,
+                            sh_data, pos):
+    """Sparse-table `trilinear_sample`: each corner's link picks its table
+    row; empty links contribute zeros (svox2's semantics)."""
+    idx, w = corners(spec, pos)
+    lk = links.reshape(-1)[idx]
+    w = torch.where(lk >= 0, w, torch.zeros_like(w))
+    sigma, sh_c = corner_gather(torch.clamp(lk, min=0).to(torch.int64), w,
+                                density_data[:, None], sh_data)
+    return sigma[:, 0], sh_c
+
+
+def _composite(spec, sample_fn, rays_o, rays_d, n_samples, step_size,
+               background_brightness, sigma_thresh, delta_scale):
+    """Fixed ``n_samples`` per ray at ``step_size`` over the grid's box,
+    sampled by ``sample_fn(pos [N, 3]) -> (sigma, sh)``; returns rgb [R, 3]."""
+    X, Y, Z = spec.reso
+    dev = rays_o.device
+    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=dev)
+    inv = 1.0 / torch.where(torch.abs(rays_d) > 1e-9, rays_d,
+                            torch.full_like(rays_d, 1e-9))
+    t0 = (0.0 - rays_o) * inv
+    t1 = (hi - rays_o) * inv
+    tmin = torch.clamp(torch.amax(torch.minimum(t0, t1), -1), min=0.0)
+    tmax = torch.amin(torch.maximum(t0, t1), -1)
+
+    r = rays_o.shape[0]
+    ts = tmin[:, None] + step_size * torch.arange(
+        n_samples, dtype=torch.float32, device=dev)[None, :]
+    valid = ts <= tmax[:, None]
+
+    pos = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
+    sigma, sh_c = sample_fn(pos.reshape(-1, 3))
+    zero = torch.zeros((), dtype=sigma.dtype, device=dev)
+    sigma = torch.where(valid.reshape(-1), sigma, zero).reshape(r, n_samples)
+    sigma = torch.where(sigma > sigma_thresh, sigma, zero)
+
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    basis = eval_sh_basis(spec.basis_dim, viewdirs)  # [R, B]
+    sh_c = sh_c.reshape(r, n_samples, 3, spec.basis_dim)
+    rgb = torch.sigmoid(torch.einsum("rscb,rb->rsc", sh_c, basis))
+
+    delta = (step_size if delta_scale is None
+             else step_size * delta_scale[:, None])
+    alpha = 1.0 - torch.exp(-sigma * delta)
+    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    t_excl = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], -1)
+    weights = alpha * t_excl
+    out = torch.sum(weights[..., None] * rgb, dim=1)
+    return out + background_brightness * trans[..., -1:]
+
+
+def render_rays_grid(spec: VoxelGridSpec, density, sh, rays_o, rays_d,
+                     n_samples: int, step_size: float,
+                     background_brightness: float = 1.0,
+                     sigma_thresh: float = 1e-8, delta_scale=None):
+    """Composite rays through the dense grid.
+
+    rays_o / rays_d [R, 3] are in grid coordinates; ``delta_scale`` ([R] or
+    None) turns grid-space step lengths into world units for the
+    attenuation.  Returns rgb [R, 3]."""
+    return _composite(
+        spec, lambda p: trilinear_sample(spec, density, sh, p), rays_o,
+        rays_d, n_samples, step_size, background_brightness, sigma_thresh,
+        delta_scale)
+
+
+def render_rays_grid_sparse(spec: VoxelGridSpec, links, density_data, sh_data,
+                            rays_o, rays_d, n_samples: int, step_size: float,
+                            background_brightness: float = 1.0,
+                            sigma_thresh: float = 1e-8, delta_scale=None):
+    """Sparse-table `render_rays_grid` (the same compositing)."""
+    return _composite(
+        spec, lambda p: trilinear_sample_sparse(spec, links, density_data,
+                                                sh_data, p),
+        rays_o, rays_d, n_samples, step_size, background_brightness,
+        sigma_thresh, delta_scale)
+
+
+def total_variation(grid, mask=None, logalpha: bool = False):
+    """Mean squared difference between neighbour cells along each of the
+    first three axes (exact TV over the dense grid)."""
+    tv = 0.0
+    n = 0
+    for axis in range(3):
+        m = grid.shape[axis] - 1
+        d2 = (grid.narrow(axis, 1, m) - grid.narrow(axis, 0, m)) ** 2
+        tv = tv + torch.sum(d2)
+        n += d2.numel()
+    return tv / n
+
+
+def upsample_grid(density, sh, new_reso):
+    """Trilinear resize of density [X, Y, Z] and SH [X, Y, Z, C] to
+    ``new_reso`` (half-pixel centres, as ``jax.image.resize``'s
+    "trilinear" upsampling)."""
+    d = F.interpolate(density[None, None], size=tuple(new_reso),
+                      mode="trilinear", align_corners=False)[0, 0]
+    s = F.interpolate(sh.permute(3, 0, 1, 2)[None], size=tuple(new_reso),
+                      mode="trilinear", align_corners=False)[0]
+    return d, s.permute(1, 2, 3, 0).contiguous()
+
+
+def dilate_mask(mask, iters: int = 2):
+    """6-connected binary dilation by shifted ORs (svox2's ``dilate``)."""
+    m = mask
+    for _ in range(iters):
+        grown = m.clone()
+        for axis in range(3):
+            n = m.shape[axis] - 1
+            grown.narrow(axis, 1, n).logical_or_(m.narrow(axis, 0, n))
+            grown.narrow(axis, 0, n).logical_or_(m.narrow(axis, 1, n))
+        m = grown
+    return m
+
+
+def sparse_links(mask, cap=None):
+    """An active mask [X, Y, Z] -> (links [X, Y, Z] int32, cells [cap]
+    int32, active flat ids [n] int64) on the mask's device."""
+    X, Y, Z = mask.shape
+    active = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    n = active.numel()
+    cap = sparse_capacity(n) if cap is None else cap
+    if n > cap:
+        raise ValueError(f"{n} active cells exceed the capacity {cap}")
+    dev = mask.device
+    links = torch.full((X * Y * Z,), -1, dtype=torch.int32, device=dev)
+    links[active] = torch.arange(n, dtype=torch.int32, device=dev)
+    cells = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    cells[:n] = active.to(torch.int32)
+    return links.reshape(X, Y, Z), cells, active
+
+
+def build_sparse(density, sh, mask, cap=None):
+    """Dense grids + active mask -> (links, density_data, sh_data, cells),
+    the tables padded to ``cap`` rows (default: the active count rounded up
+    to a multiple of 2^15)."""
+    links, cells, active = sparse_links(mask, cap)
+    cap, n = cells.shape[0], active.numel()
+    ddata = torch.zeros((cap,), dtype=torch.float32, device=density.device)
+    sdata = torch.zeros((cap, sh.shape[-1]), dtype=torch.float32,
+                        device=sh.device)
+    ddata[:n] = density.reshape(-1)[active]
+    sdata[:n] = sh.reshape(-1, sh.shape[-1])[active]
+    return links, ddata, sdata, cells
+
+
+def total_variation_sparse(spec: VoxelGridSpec, links, cells, data, n_subset,
+                           ridx=None, generator=None):
+    """Subset TV over active cells: ``ridx`` [n_subset] table rows (drawn
+    uniformly from [0, cap) with ``generator`` when not given) are
+    differenced against their +1 neighbours along each axis (a missing
+    neighbour counts as 0, svox2's sparse convention); returns the mean
+    squared difference."""
+    X, Y, Z = spec.reso
+    cap = cells.shape[0]
+    flat_links = links.reshape(-1)
+    if ridx is None:
+        ridx = torch.randint(0, cap, (n_subset,), generator=generator,
+                             device=data.device)
+    ridx = ridx.to(torch.int64)
+    cell = cells[ridx].to(torch.int64)
+    active = cell >= 0
+    cell = torch.clamp(cell, min=0)
+    base = data[ridx]
+    if base.ndim == 1:
+        base = base[:, None]
+    z = cell % Z
+    y = (cell // Z) % Y
+    x = cell // (Y * Z)
+    zero = torch.zeros((), dtype=base.dtype, device=base.device)
+    tv = 0.0
+    cnt = 0
+    for cc, lim, stride in ((x, X, Y * Z), (y, Y, Z), (z, Z, 1)):
+        nb_ok = cc + 1 < lim
+        lk = flat_links[torch.clamp(cell + stride, max=X * Y * Z - 1)]
+        nb = data[torch.clamp(lk, min=0).to(torch.int64)]
+        if nb.ndim == 1:
+            nb = nb[:, None]
+        nb = torch.where((nb_ok & (lk >= 0))[:, None], nb, zero)
+        d2 = torch.where((active & nb_ok)[:, None], (nb - base) ** 2, zero)
+        tv = tv + torch.sum(d2)
+        cnt = cnt + torch.sum(active & nb_ok) * base.shape[1]
+    return tv / torch.clamp(cnt.to(base.dtype), min=1.0)

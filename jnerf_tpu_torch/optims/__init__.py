@@ -132,3 +132,7 @@ class EMA:
             v.copy_(p)
         state["steps"] = steps
         return state
+
+
+from .linearlog import LinearLog  # noqa: E402,F401
+from .svox2_optim import PlenOptim  # noqa: E402,F401

@@ -12,9 +12,10 @@ otherwise the config's sampler and model types decide), plus ``--device``
 kernel's plain twin).  ``train``, ``test`` and ``render`` drive the port's
 `Runner` (NGP and vanilla NeRF); ``--type mesh`` (or ``runner =
 "NeuSRunner"``) selects `NeuSRunner`, whose ``train`` and
-``validate_mesh`` (world space, 512^3, ``--mcube_threshold``) it runs.
-The Mip-NeRF and Plenoxels runners are not ported yet and exit with a
-message.  Where the JAX CLI prints its
+``validate_mesh`` (world space, 512^3, ``--mcube_threshold``) it runs; a
+``MipSampler`` config selects `MipRunner` (``train``, ``test``), a
+``SparseGrid`` config `Svox2Runner` (``train``).  A task the chosen runner
+lacks exits with the JAX CLI's message.  Where the JAX CLI prints its
 backend, this prints the card's name and power limit.
 """
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 
-NOT_PORTED = ("MipRunner", "Svox2Runner")
+RUNNERS = ("Runner", "NeuSRunner", "MipRunner", "Svox2Runner")
 
 
 def select_runner_name(cfg, type_arg: str) -> str:
@@ -73,8 +74,8 @@ def parse_args(argv=None):
                         choices=["novel_view", "mesh"])
     parser.add_argument("--mcube_threshold", default=0.0, type=float)
     parser.add_argument("--runner", default="", type=str,
-                        help="override runner class (Runner, NeuSRunner, "
-                             "MipRunner, Svox2Runner)")
+                        help="override runner class (" + ", ".join(RUNNERS)
+                        + ")")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (the default) or cpu")
     return parser.parse_args(argv)
@@ -82,8 +83,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Run one task; returns (the runner, what the task returned: the test
-    PSNR for Runner's train and test, the mp4's path for render, the PLY's
-    path for validate_mesh)."""
+    PSNR for Runner's train and for test, the last loss for MipRunner's and
+    Svox2Runner's train, the mp4's path for render, the PLY's path for
+    validate_mesh)."""
     args = parse_args(argv)
     if not args.config_file:
         raise SystemExit("--config-file is required")
@@ -92,20 +94,15 @@ def main(argv=None):
 
     init_cfg(args.config_file)
     name = args.runner or select_runner_name(get_cfg(), args.type)
-    if name in NOT_PORTED:
-        raise SystemExit(f"{name} is not ported to jnerf_tpu_torch yet "
-                         "(ROADMAP.md, queue 1); use tools/run_net.py")
-    if name == "NeuSRunner":
-        from jnerf_tpu_torch.runner import NeuSRunner
-
-        runner = NeuSRunner(is_continue=(args.task == "validate_mesh"),
-                            device=args.device)
-    elif name == "Runner":
-        from jnerf_tpu_torch.runner import Runner
-
-        runner = Runner(device=args.device)
-    else:
+    if name not in RUNNERS:
         raise SystemExit(f"unknown runner {name!r} (config key 'runner')")
+    from jnerf_tpu_torch import runner as runners
+
+    if name == "NeuSRunner":
+        runner = runners.NeuSRunner(is_continue=(args.task == "validate_mesh"),
+                                    device=args.device)
+    else:
+        runner = getattr(runners, name)(device=args.device)
 
     if args.task == "train":
         out = runner.train()

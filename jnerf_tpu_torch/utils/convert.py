@@ -17,8 +17,11 @@ The vanilla-NeRF tree (``pts_linears`` [{w, b}, ...], ``feature_linear``,
 The NeuS tree (``sdf`` and ``color`` [{w, b}, ...], ``nerf``: a vanilla
 tree, ``variance``: {variance}) maps onto the port's `NeuS` submodules
 ``sdf_network.layers``, ``color_network.layers``, ``nerf_outside`` and
-``deviation_network``.  Every function takes and gives numpy arrays or
-tensors, never JAX arrays, so that this module imports no JAX.
+``deviation_network``.  The Mip-NeRF tree (``trunk`` [{w, b}, ...],
+``density``, ``bottleneck``, ``condition`` [...], ``rgb``) has
+`MipNerfMLP`'s names, joined with dots as the vanilla tree's.  Every
+function takes and gives numpy arrays or tensors, never JAX arrays, so
+that this module imports no JAX.
 """
 
 from __future__ import annotations

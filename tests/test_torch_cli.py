@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from torch_parity import (  # noqa: F401
-    clear_cfgs, write_blender_cfg, write_neus_cfg,
+    clear_cfgs, write_blender_cfg, write_mip_cfg, write_neus_cfg,
+    write_svox2_cfg,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,22 +72,74 @@ def test_runner_choice_matches_the_jax_cli():
 
 def test_unported_tasks_and_missing_card_exit(tmp_path, synthetic_scene,
                                               clear_cfgs):
-    """The Mip-NeRF and Plenoxels runners exit with a message, and so does
-    a task the chosen runner lacks (validate_mesh on the NGP Runner);
-    --device cuda without a card exits rather than falling back to the
-    CPU."""
+    """A task the chosen runner lacks exits with the JAX CLI's message
+    (validate_mesh on the NGP Runner, render on MipRunner, test and render
+    on Svox2Runner), and so does an unknown runner; --device cuda without
+    a card exits rather than falling back to the CPU."""
     from jnerf_tpu_torch.tools import run_net
 
     path = write_blender_cfg(tmp_path, synthetic_scene)
-    for extra in (["--runner", "MipRunner"], ["--runner", "Svox2Runner"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            run_net.main(["--config-file", path, "--device", "cpu"] + extra)
-    with pytest.raises(SystemExit, match="does not implement task"):
-        run_net.main(["--config-file", path, "--device", "cpu", "--task",
-                      "validate_mesh"])
+    cpu = ["--config-file", path, "--device", "cpu"]
+    with pytest.raises(SystemExit, match="Runner does not implement task "
+                       "'validate_mesh'"):
+        run_net.main(cpu + ["--task", "validate_mesh"])
+    with pytest.raises(SystemExit, match="unknown runner 'NoRunner'"):
+        run_net.main(cpu + ["--runner", "NoRunner"])
+    mip = write_mip_cfg(tmp_path / "mip", synthetic_scene)
+    with pytest.raises(SystemExit, match="MipRunner does not implement task "
+                       "'render'"):
+        run_net.main(["--config-file", mip, "--device", "cpu", "--task",
+                      "render"])
+    svox = write_svox2_cfg(tmp_path / "svox", synthetic_scene)
+    for task in ("test", "render"):
+        with pytest.raises(SystemExit, match=f"Svox2Runner does not "
+                           f"implement task '{task}'"):
+            run_net.main(["--config-file", svox, "--device", "cpu", "--task",
+                          task])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA is not available"):
             run_net.main(["--config-file", path])
+
+
+def test_mip_and_svox2_through_the_cli_on_cpu(tmp_path, synthetic_scene,
+                                              clear_cfgs, capsys,
+                                              monkeypatch, one_thread):
+    """A MipSampler config selects MipRunner: --task train (6 steps,
+    _VAL_FREQ lowered to 4: one validation line and img4.png) writes
+    params.pkl, and --task test from it reads the PSNR that the trained
+    runner's own test() reads; --runner MipRunner on the same file picks
+    the same runner.  A SparseGrid config selects Svox2Runner: --task
+    train runs its n_iters, crossing an upsample into the sparse grid, and
+    writes no file."""
+    from jnerf_tpu_torch.runner import MipRunner, Svox2Runner
+    from jnerf_tpu_torch.tools import run_net
+
+    monkeypatch.setattr(MipRunner, "_VAL_FREQ", 4)
+    mip = write_mip_cfg(tmp_path / "mip", synthetic_scene, tot_train_steps=6,
+                        num_samples=8, net_width=32, net_width_condition=16)
+    argv = ["--config-file", mip, "--device", "cpu"]
+    runner, loss = run_net.main(argv + ["--task", "train"])
+    assert isinstance(runner, MipRunner) and np.isfinite(loss)
+    assert runner.start == 6 and runner.optimizer.count == 6
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "device: cpu (the kernels' plain PyTorch twins)"
+    assert [x.split(" |")[0] for x in lines if x.startswith("STEP=")] == [
+        "STEP=4"]
+    out = tmp_path / "mip" / "logs" / "mip_smoke"
+    assert {p.name for p in out.iterdir()} == {"img4.png", "params.pkl"}
+    psnr = runner.test()
+    again, psnr2 = run_net.main(argv + ["--task", "test", "--runner",
+                                        "MipRunner"])
+    assert again.start == 6 and psnr2 == pytest.approx(psnr, abs=1e-4)
+
+    svox = write_svox2_cfg(tmp_path / "svox", synthetic_scene, n_iters=6,
+                           upsamp_every=4, sparse_cell_threshold=30000,
+                           density_thresh=0.09, sparse_dilate=1)
+    runner, mse = run_net.main(["--config-file", svox, "--device", "cpu"])
+    assert isinstance(runner, Svox2Runner) and runner.gstep == 6
+    assert runner.grid.sparse and runner.grid.spec.reso == (48, 48, 48)
+    assert np.isfinite(mse) and "sparse grid: " in capsys.readouterr().out
+    assert not any((tmp_path / "svox" / "logs" / "svox2_smoke").iterdir())
 
 
 def test_train_test_render_on_cpu(tmp_path, clear_cfgs, monkeypatch, capsys,
@@ -182,16 +235,25 @@ def test_neus_train_and_validate_mesh_on_cpu(tmp_path, clear_cfgs,
 def test_user_path_imports_no_jax_or_imaging_library(tmp_path):
     """Importing the CLI, loading a NerfDataset and Runner.train() through a
     validation render, the checkpoint and the test set (PNGs written), the
-    NGP mesh tool on that checkpoint, and NeuSRunner.train() through a
-    validation image (PNGs, the JET depth) and a validation mesh, pull in
-    none of JAX, the JAX package, optax, yaml, PIL, imageio, cv2 or tqdm
-    (a fresh interpreter, beyond what torch itself imports): the machine
-    with the card has none of them."""
+    NGP mesh tool on that checkpoint, NeuSRunner.train() through a
+    validation image (PNGs, the JET depth) and a validation mesh,
+    MipRunner.train() through a validation image and its checkpoint, and
+    Svox2Runner.train() across an upsample into the sparse grid, then its
+    .npz, pull in none of JAX, the JAX package, optax, yaml, PIL, imageio,
+    cv2 or tqdm (a fresh interpreter, beyond what torch itself imports):
+    the machine with the card has none of them."""
     scene = str(tmp_path / "scene")
     cfg = write_blender_cfg(tmp_path, scene, steps=20)
     neus_scene = str(tmp_path / "scan")
     neus_cfg = write_neus_cfg(tmp_path / "neus", neus_scene, end_iter=3,
                               val_freq=3, val_mesh_freq=3)
+    mip_cfg = write_mip_cfg(tmp_path / "mip", scene, tot_train_steps=3,
+                            num_samples=8, net_width=32,
+                            net_width_condition=16)
+    svox_cfg = write_svox2_cfg(tmp_path / "svox", scene, model=dict(
+        reso=8, radius=1.4), reso_list=[[8] * 3, [16] * 3], upsamp_every=2,
+        n_iters=3, sparse_cell_threshold=1000, density_thresh=0.09,
+        batch_size=64, render_n_samples=32)
     code = f"""
 import sys
 import numpy, torch
@@ -215,6 +277,15 @@ from jnerf_tpu_torch.runner import NeuSRunner
 make_synthetic_neus_scene({neus_scene!r}, n_images=2, H=8, W=12)
 init_cfg({neus_cfg!r})
 NeuSRunner(device="cpu").train()
+from jnerf_tpu_torch.runner import MipRunner, Svox2Runner
+MipRunner._VAL_FREQ = 2
+init_cfg({mip_cfg!r})
+MipRunner(device="cpu").train()
+init_cfg({svox_cfg!r})
+svox = Svox2Runner(device="cpu")
+svox.train()
+assert svox.grid.sparse
+svox.save()
 new = {{m.split(".")[0] for m in set(sys.modules) - before}}
 print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
                     "cv2", "imageio", "tqdm"}}))
@@ -228,6 +299,9 @@ print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
     neus = tmp_path / "neus" / "exp"
     assert len(os.listdir(neus / "depths")) == 1
     assert (neus / "meshes_64" / "00000003.ply").is_file()
+    mip = tmp_path / "mip" / "logs" / "mip_smoke"
+    assert {p.name for p in mip.iterdir()} == {"img2.png", "params.pkl"}
+    assert (tmp_path / "svox" / "logs" / "svox2_smoke" / "grid.npz").is_file()
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 

@@ -245,3 +245,65 @@ def read_ply(path):
                           [("n", np.uint8), ("idx", np.int32, 3)])
     assert len(faces) == nf and (faces["n"] == 3).all()
     return verts, faces["idx"]
+
+
+MIP_BASE = str(Path(__file__).resolve().parents[1]
+               / "projects" / "mipnerf" / "configs" / "mip_base.py")
+SVOX2_BASE = str(Path(__file__).resolve().parents[1]
+                 / "projects" / "svox2" / "configs" / "svox2_base.py")
+
+
+def write_mip_cfg(tmp_path, scene, **extra):
+    """A user's Mip-NeRF config: mip_base.py over a blender-format
+    ``scene``, shrunk as the JAX package's smoke test shrinks it (256 rays,
+    32 samples a level, a 4 x 64 trunk, a 32-wide colour branch, the
+    schedule over 60 steps with a 10-step delay); ``extra`` keys are
+    appended."""
+    Path(tmp_path).mkdir(parents=True, exist_ok=True)
+    path = Path(tmp_path) / "mip_cfg.py"
+    lines = "".join(f"{k} = {v!r}\n" for k, v in extra.items())
+    path.write_text(textwrap.dedent(f"""\
+        _base_ = {MIP_BASE!r}
+        exp_name = "mip_smoke"
+        log_dir = {str(Path(tmp_path) / "logs")!r}
+        dataset_dir = {str(scene)!r}
+        dataset = dict(
+            train=dict(root_dir=dataset_dir, batch_size=256),
+            val=dict(root_dir=dataset_dir, batch_size=256),
+            test=dict(root_dir=dataset_dir, batch_size=256),
+        )
+        tot_train_steps = 60
+        num_samples = 32
+        net_depth = 4
+        net_width = 64
+        net_width_condition = 32
+        linearlog = dict(max_steps=60, lr_delay_steps=10)
+        seed = 0
+    """) + lines)
+    return str(path)
+
+
+def write_svox2_cfg(tmp_path, scene, **extra):
+    """A user's Plenoxels config: svox2_base.py over a blender-format
+    ``scene`` at reso 24 (radius 1.4, basis 9), 512 rays a step, 96
+    samples a ray; ``extra`` keys are appended."""
+    Path(tmp_path).mkdir(parents=True, exist_ok=True)
+    path = Path(tmp_path) / "svox2_cfg.py"
+    lines = "".join(f"{k} = {v!r}\n" for k, v in extra.items())
+    path.write_text(textwrap.dedent(f"""\
+        _base_ = {SVOX2_BASE!r}
+        exp_name = "svox2_smoke"
+        log_dir = {str(Path(tmp_path) / "logs")!r}
+        dataset_dir = {str(scene)!r}
+        dataset = dict(
+            train=dict(root=dataset_dir, split='train'),
+            test=dict(root=dataset_dir, split='test'),
+        )
+        model = dict(reso=24, radius=1.4)
+        reso_list = [[24] * 3, [48] * 3]
+        batch_size = 512
+        n_iters = 8
+        render_n_samples = 96
+        seed = 0
+    """) + lines)
+    return str(path)
