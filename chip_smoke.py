@@ -92,9 +92,23 @@ on failure:
    background's by 1 dB), the upsample to a sparse 512^3 grid and 128
    sparse steps (the active cells and the tables' size bounded, the MSE
    below 0.2), and the grid's .npz saved, timed and loaded back; no repo
-   kernel runs.
+   kernel runs;
+15. pixelNeRF (`python -m jnerf_tpu_torch.projects.pixelnerf.main`, its
+   main in this process) at the JAX script's widths (512-channel encoder,
+   512-wide trunk, 3 references of 100^2, 2048 rays x 64 samples; f32, TF32
+   off) on its analytic scene, after one small step on the card against
+   the CPU: 2 epochs of 102 steps, the second epoch's mean loss below the
+   first's, then pixelnerf.pkl loaded into a fresh model that must render
+   a batch as the trained one does; no repo kernel runs;
+16. Recursive-NeRF (`python -m jnerf_tpu_torch.projects.recursive_nerf.main`)
+   at the script's widths (W=256, head_num 8, 1024 rays x 64 samples) on
+   its 16 views of 80^2, after one small step on the card against the CPU:
+   800 iterations with the stages at 200/400/600, all three `stage ->
+   level` transitions, the last 50 iterations' MSE below the first 50's,
+   then recursive_nerf.pkl loaded back as in phase 15; no repo kernel
+   runs.
 
-Each of phases 9-14 prints its time and its peak device memory.
+Each of phases 9-16 prints its time and its peak device memory.
 
 The last lines are the kernel table as JSON (each kernel with its bound:
 the larger of its bytes over the memory rate and its operations over the
@@ -195,6 +209,16 @@ SVOX_ITERS, SVOX_UPSAMP = 640, 512
 SVOX_PSNR_OVER_WHITE = 1.0
 SVOX_SPARSE_MSE = 0.2
 SVOX_SMALL_RTOL = 1e-4
+# Phase 15: pixelNeRF at the JAX script's widths on its analytic scene, 2 of
+# the script's 10 epochs (the JAX package's own test runs 2).
+PIX_EPOCHS = 2
+# Phase 16: Recursive-NeRF at the JAX script's widths, 800 of its 3000
+# iterations with step1/2/3 at 200/400/600 (of 500/1000/1500), so that every
+# stage runs and all three anchor splits happen.
+REC_ITERS, REC_STAGES = 800, (200, 400, 600)
+# Both: one small step on the card against the CPU: the loss within 1e-5
+# relative, the largest gradient |diff| within 1e-5 of the largest entry.
+MINI_SMALL_RTOL = 1e-5
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1884,6 +1908,200 @@ def run_svox2(torch, run_net, counters, scene, tmp):
                 cap=cap, save_s=save_s, phase_s=secs, peak_mib=peak)
 
 
+def mini_small_step(torch, name, make, loss_of):
+    """One step of a mini-project's loss on the card and on the CPU from
+    the same weights and draws: ``make()`` builds the CPU model,
+    ``loss_of(model, device)`` its loss.  The loss within MINI_SMALL_RTOL
+    relative, the largest gradient |diff| within MINI_SMALL_RTOL of the
+    largest gradient entry."""
+    cpu = make()
+    gpu = make().to("cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    out = []
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        loss = loss_of(model, dev)
+        loss.backward()
+        out.append((float(loss.detach()), {
+            k: p.grad.cpu() for k, p in model.named_parameters()
+            if p.grad is not None}))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    if set(g_gpu) != set(g_cpu):
+        raise SystemExit(f"{name}: the card's step reached other parameters")
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    if not top > 0:
+        raise SystemExit(f"{name}: the small step has no gradient")
+    diff = max(float((g_gpu[k] - g).abs().max()) for k, g in g_cpu.items())
+    print(f"{name} small step card vs CPU: loss {l_gpu:.7f} vs {l_cpu:.7f}; "
+          f"largest grad |diff| {diff:.3e} of the largest entry {top:.3e} "
+          f"({diff / top:.2e})", flush=True)
+    if not abs(l_gpu - l_cpu) <= MINI_SMALL_RTOL * abs(l_cpu):
+        raise SystemExit(f"the card's {name} step loss disagrees with the "
+                         "CPU's")
+    if not diff <= MINI_SMALL_RTOL * top:
+        raise SystemExit(f"the card's {name} gradients disagree")
+
+
+def run_pixelnerf(torch, counters, tmp):
+    """Phase 15: pixelNeRF through its script's main (--synthetic, --device
+    cuda, PIX_EPOCHS epochs) at the JAX script's widths, after one small
+    step (5 views of 32^2, a 32-wide trunk, 256 rays x 16 samples) on the
+    card against the CPU.  Pass: the second epoch's mean loss below the
+    first's, every loss finite, no repo kernel launched, and
+    pixelnerf.pkl, loaded into a fresh model, renders a batch within 1e-6
+    of the trained model.  Returns steps/s, the epochs' losses and the
+    peak memory."""
+    import pickle
+
+    import numpy as np
+
+    from jnerf_tpu_torch.projects.pixelnerf import main as pix
+    from jnerf_tpu_torch.utils.convert import jax_params_to_state_dict
+
+    t_phase = phase_start(torch)
+    images, poses, focal = pix.make_synthetic(5, 32, 32)
+    ro, rd, rgb = (torch.as_tensor(a[:256]) for a in pix.camera_rays(
+        images[3:], poses[3:], focal))
+    u = torch.rand((16,), generator=torch.Generator().manual_seed(1))
+
+    def loss_of(model, dev):
+        return pix.loss_fn(model, torch.as_tensor(images[:3], device=dev),
+                           poses[:3], focal, ro.to(dev), rd.to(dev),
+                           rgb.to(dev), u.to(dev), 16)
+
+    mini_small_step(torch, "pixelNeRF",
+                    lambda: pix.build_model("cpu", net_width=32), loss_of)
+    if torch.backends.cudnn.allow_tf32 \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 is on: pixelNeRF runs in f32")
+    out = os.path.join(tmp, "pixelnerf")
+    reset_counts(counters)
+    model, hist = pix.main(["--synthetic", "--epochs", str(PIX_EPOCHS),
+                            "--out", out, "--device", "cuda"])
+    counts = read_counts(counters)
+    train_peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = len(hist["step_loss"])
+    net = model["net"]
+    print(f"pixelNeRF (the JAX script's widths: encoder "
+          f"{model['enc'].out_channels} channels, trunk {net.net_width}, "
+          f"{pix.N_SAMPLES} samples, batch 2048): {steps} steps in "
+          f"{hist['seconds']:.3f} s = {steps / hist['seconds']:.3f} steps/s, "
+          f"peak memory {train_peak:.1f} MiB; epoch losses "
+          f"{[round(x, 6) for x in hist['epoch_loss']]}; kernel launches "
+          f"{counts}, on {card_line()}", flush=True)
+    if model["enc"].out_channels != 512 or net.net_width != 512 \
+            or steps != PIX_EPOCHS * (21 * 100 * 100 // 2048):
+        raise SystemExit("pixelNeRF did not run at the script's widths")
+    if not np.isfinite(hist["step_loss"]).all() \
+            or not hist["epoch_loss"][1] < hist["epoch_loss"][0]:
+        raise SystemExit(f"pixelNeRF's loss did not fall: "
+                         f"{hist['epoch_loss']}")
+    if any(counts.values()):
+        raise SystemExit(f"pixelNeRF launched a repo kernel: {counts}")
+    with open(os.path.join(out, "pixelnerf.pkl"), "rb") as f:
+        again = pix.build_model("cuda", seed=0)
+        again.load_state_dict(jax_params_to_state_dict(pickle.load(f)))
+    images, poses, focal = pix.make_synthetic()
+    ro, rd, rgb = (torch.as_tensor(a[:2048], device="cuda") for a in
+                   pix.camera_rays(images[3:], poses[3:], focal))
+    refs = torch.as_tensor(images[:3], device="cuda")
+    u = torch.full((pix.N_SAMPLES,), 0.5, device="cuda")
+    with torch.no_grad():
+        a, b = (pix.loss_fn(m, refs, poses[:3], focal, ro, rd, rgb, u)
+                for m in (model, again))
+    if not (bool(torch.isfinite(a)) and abs(float(a) - float(b)) <= 1e-6):
+        raise SystemExit(f"pixelnerf.pkl renders another loss: {float(a)} "
+                         f"vs {float(b)}")
+    secs, peak = phase_end(torch, "pixelNeRF", t_phase)
+    return dict(steps=steps, steps_per_s=steps / hist["seconds"],
+                epoch_loss=hist["epoch_loss"], train_peak_mib=train_peak,
+                phase_s=secs, peak_mib=peak)
+
+
+def run_recursive_nerf(torch, counters, tmp):
+    """Phase 16: Recursive-NeRF through its script's main (--synthetic,
+    --device cuda) at the JAX script's widths, REC_ITERS iterations with
+    step1/2/3 at REC_STAGES, after one small step at level 3 (head_num 8,
+    W=64, 128 rays x 16 samples, anchors from a k-means split) on the card
+    against the CPU.  Pass: the three `stage -> level` transitions, the
+    last 50 iterations' MSE below the first 50's, every MSE finite, no
+    repo kernel launched, and recursive_nerf.pkl, loaded into a fresh
+    model, renders a batch within 1e-6 of the trained model.  Returns
+    steps/s a stage and the peak memory."""
+    import pickle
+
+    import numpy as np
+
+    from jnerf_tpu_torch.models.networks.recursive_nerf import split_anchors
+    from jnerf_tpu_torch.projects.pixelnerf.main import (
+        camera_rays, make_synthetic,
+    )
+    from jnerf_tpu_torch.projects.recursive_nerf import main as rec
+    from jnerf_tpu_torch.utils.convert import jax_params_to_state_dict
+
+    t_phase = phase_start(torch)
+    images, poses, focal = make_synthetic(2, 16, 16)
+    ro, rd, rgb = (torch.as_tensor(a[::4]) for a in camera_rays(
+        images, poses, focal))
+    u = torch.rand((16,), generator=torch.Generator().manual_seed(2))
+
+    def make():
+        model = rec.build_model("cpu", width=64)
+        with torch.no_grad():
+            _, unc, pts = rec.render(model, ro, rd, u, 3, 16)
+        return split_anchors(model, pts, unc.reshape(-1))
+
+    def loss_of(model, dev):
+        return rec.loss_fn(model, ro.to(dev), rd.to(dev), rgb.to(dev),
+                           u.to(dev), 3, 16)[0]
+
+    mini_small_step(torch, "Recursive-NeRF", make, loss_of)
+    out = os.path.join(tmp, "recursive_nerf")
+    step1, step2, step3 = REC_STAGES
+    reset_counts(counters)
+    model, hist = rec.main([
+        "--synthetic", "--n-iters", str(REC_ITERS), "--step1", str(step1),
+        "--step2", str(step2), "--step3", str(step3), "--out", out,
+        "--device", "cuda"])
+    counts = read_counts(counters)
+    train_peak = torch.cuda.max_memory_allocated() / 2**20
+    mse = np.asarray(hist["mse"])
+    first, last = float(mse[:50].mean()), float(mse[-50:].mean())
+    rates = {f"level {lvl}": n / s for lvl, n, s in hist["stages"] if n}
+    print(f"Recursive-NeRF (the JAX script's widths: W {model.W}, "
+          f"{model.node_num} nodes, {model.linear_num} linears, 1024 rays x "
+          f"64 samples): {len(mse)} iterations, steps/s "
+          f"{ {k: round(v, 3) for k, v in rates.items()} }, transitions "
+          f"{hist['transitions']}, peak memory {train_peak:.1f} MiB; MSE "
+          f"first 50 {first:.5f}, last 50 {last:.5f}; kernel launches "
+          f"{counts}, on {card_line()}", flush=True)
+    if (model.W, model.node_num, model.linear_num) != (256, 15, 54):
+        raise SystemExit("Recursive-NeRF did not run at the script's widths")
+    if len(mse) != REC_ITERS or hist["transitions"] != [1, 2, 3] \
+            or not np.isfinite(mse).all():
+        raise SystemExit(f"Recursive-NeRF ran {len(mse)} iterations, "
+                         f"transitions {hist['transitions']}")
+    if not last < first:
+        raise SystemExit(f"Recursive-NeRF's MSE did not fall: {first} -> "
+                         f"{last}")
+    if any(counts.values()):
+        raise SystemExit(f"Recursive-NeRF launched a repo kernel: {counts}")
+    again = rec.build_model("cuda", seed=1)
+    with open(os.path.join(out, "recursive_nerf.pkl"), "rb") as f:
+        again.load_state_dict(jax_params_to_state_dict(pickle.load(f)))
+    images, poses, focal = make_synthetic(n_images=16, H=80, W=80)
+    ro, rd, rgb = (torch.as_tensor(a[::100], device="cuda") for a in
+                   camera_rays(images, poses, focal))
+    u = torch.full((64,), 0.5, device="cuda")
+    with torch.no_grad():
+        a, b = (rec.loss_fn(m, ro, rd, rgb, u, 3)[1] for m in (model, again))
+    if not (bool(torch.isfinite(a)) and abs(float(a) - float(b)) <= 1e-6):
+        raise SystemExit(f"recursive_nerf.pkl renders another MSE: "
+                         f"{float(a)} vs {float(b)}")
+    secs, peak = phase_end(torch, "Recursive-NeRF", t_phase)
+    return dict(steps_per_s=rates, mse_first=first, mse_last=last,
+                train_peak_mib=train_peak, phase_s=secs, peak_mib=peak)
+
+
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source and the g++ build of the host-side
     marching tetrahedra, started together."""
@@ -2009,9 +2227,9 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-14 (the CLI, the xor kernels, the probe refresh, the mesh
-    tool, vanilla NeRF, NeuS, Mip-NeRF and Plenoxels) in ``tmp``; returns
-    the kernels line."""
+    """Phases 8-16 (the CLI, the xor kernels, the probe refresh, the mesh
+    tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF and
+    Recursive-NeRF) in ``tmp``; returns the kernels line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -2040,6 +2258,8 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     run_neus(torch, run_net, counters, tmp)
     run_mip(torch, run_net, counters, scene, tmp)
     run_svox2(torch, run_net, counters, scene, tmp)
+    run_pixelnerf(torch, counters, tmp)
+    run_recursive_nerf(torch, counters, tmp)
 
     head = "step f8l4@2^19"
     others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")

@@ -19,7 +19,12 @@ tree, ``variance``: {variance}) maps onto the port's `NeuS` submodules
 ``sdf_network.layers``, ``color_network.layers``, ``nerf_outside`` and
 ``deviation_network``.  The Mip-NeRF tree (``trunk`` [{w, b}, ...],
 ``density``, ``bottleneck``, ``condition`` [...], ``rgb``) has
-`MipNerfMLP`'s names, joined with dots as the vanilla tree's.  Every
+`MipNerfMLP`'s names, joined with dots as the vanilla tree's, and so
+does the Recursive-NeRF tree (``linears``, ``confidence``, ``alpha``,
+``rgb`` [{feat, view}], ``anchors`` [arrays]) with `RecursiveNeRF`'s.  The
+pixelNeRF tree ``{"enc": {stem, conv<i>a, conv<i>b}, "net": {...}}`` maps
+onto a ``ModuleDict(enc=ImageEncoder, net=PixelNeRF)``: ``net`` by the
+same names, ``enc``'s conv weights from HWIO to the port's OIHW.  Every
 function takes and gives numpy arrays or tensors, never JAX arrays, so
 that this module imports no JAX.
 """
@@ -70,9 +75,15 @@ def _unflatten(flat):
 
 
 def jax_params_to_state_dict(params) -> dict:
-    """A JAX params tree (NGP, vanilla NeRF or NeuS; numpy leaves) -> the
-    port's state_dict."""
+    """A JAX params tree (NGP, vanilla NeRF, NeuS, Mip-NeRF, pixelNeRF or
+    Recursive-NeRF; numpy leaves) -> the port's state_dict."""
     if "pos_encoder" not in params:
+        if set(params) == {"enc", "net"}:
+            out = _flatten(params["net"], "net", {})
+            for k, w in params["enc"].items():  # HWIO -> OIHW
+                out[f"enc.{k}"] = torch.as_tensor(np.ascontiguousarray(
+                    np.array(w, np.float32).transpose(3, 2, 0, 1)))
+            return out
         if set(params) == set(_NEUS_PREFIX):
             out = {}
             for key, prefix in _NEUS_PREFIX.items():
@@ -99,6 +110,12 @@ def state_dict_to_jax_params(sd) -> dict:
 
     if "pos_encoder.grid" not in sd:
         flat = {k: np32(v) for k, v in sd.items()}
+        if any(k.startswith("enc.") for k in flat):
+            enc = {k[4:]: np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+                   for k, v in flat.items() if k.startswith("enc.")}
+            return {"enc": enc,  # OIHW -> HWIO
+                    "net": _unflatten({k[4:]: v for k, v in flat.items()
+                                       if k.startswith("net.")})}
         if any(k.startswith("sdf_network.") for k in flat):
             return {key: _unflatten({k[len(prefix) + 1:]: v
                                      for k, v in flat.items()

@@ -305,6 +305,45 @@ print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_project_scripts_import_no_jax_or_imaging_library(tmp_path):
+    """Both mini-project scripts, each through its main() with --device cpu
+    (full-width model, the analytic scene, the pickle; no training step)
+    and through its training functions at a tiny size (every stage
+    transition of Recursive-NeRF included), pull in none of JAX, the JAX
+    package, optax, yaml, PIL, imageio, cv2 or tqdm in a fresh
+    interpreter."""
+    code = f"""
+import sys
+import torch
+torch.set_num_threads(1)
+before = set(sys.modules)
+from jnerf_tpu_torch.projects.pixelnerf import main as pix
+from jnerf_tpu_torch.projects.recursive_nerf import main as rec
+pix.main(["--synthetic", "--epochs", "0", "--device", "cpu",
+          "--out", {str(tmp_path / "pix")!r}])
+images, poses, focal = pix.make_synthetic(4, 16, 16)
+pix.train(pix.build_model("cpu", net_width=16), images, poses, focal,
+          epochs=1, batch=256, n_samples=4)
+rec.main(["--synthetic", "--n-iters", "0", "--step1", "0", "--step2", "0",
+          "--step3", "0", "--device", "cpu",
+          "--out", {str(tmp_path / "rec")!r}])
+hist = rec.train(rec.build_model("cpu", width=16), images[:2], poses[:2],
+                 focal, n_iters=4, step1=1, step2=2, step3=3, n_rand=16,
+                 n_samples=4)
+assert hist["transitions"] == [1, 2, 3]
+new = {{m.split(".")[0] for m in set(sys.modules) - before}}
+print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
+                    "cv2", "imageio", "tqdm"}}))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert (tmp_path / "pix" / "pixelnerf.pkl").is_file()
+    assert (tmp_path / "rec" / "recursive_nerf.pkl").is_file()
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_metrics(tmp_path):
     """ThroughputMeter counts rays and samples over its window, StepTimer
     names phases (a CPU tensor needs no synchronize), trace writes a
