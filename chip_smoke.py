@@ -106,9 +106,19 @@ on failure:
    800 iterations with the stages at 200/400/600, all three `stage ->
    level` transitions, the last 50 iterations' MSE below the first 50's,
    then recursive_nerf.pkl loaded back as in phase 15; no repo kernel
-   runs.
+   runs;
+17. data parallelism (`jnerf_tpu_torch/parallel/dryrun.py`): two ranks on
+   the card over gloo run `dryrun_multichip(2)` (the collectives on CUDA
+   tensors, the JAX dry run's flagship step after a step-300 refresh, in
+   bf16 and in f32, and a two-window train_range whose shapes the ranks
+   check at each window); this process runs each flagship step alone from
+   the same seed and holds the ranks to it (the f32 gradients within 1e-5
+   of their largest entries, the losses at rtol 1e-5, the refreshed grids
+   at rtol 1e-5 / atol 1e-6 with the bitfields equal), kernels F and B
+   counted in each rank's step; then `dryrun_multichip(1)`, NCCL at world
+   size 1.
 
-Each of phases 9-16 prints its time and its peak device memory.
+Each of phases 9-17 prints its time and its peak device memory.
 
 The last lines are the kernel table as JSON (each kernel with its bound:
 the larger of its bytes over the memory rate and its operations over the
@@ -2102,6 +2112,100 @@ def run_recursive_nerf(torch, counters, tmp):
                 train_peak_mib=train_peak, phase_s=secs, peak_mib=peak)
 
 
+def grad_gaps(got, ref):
+    """Per gradient tensor, max |diff| over its largest entry."""
+    return {k: float((got[k] - g).abs().max()) / float(g.abs().max())
+            for k, g in ref.items()}
+
+
+def run_parallel(torch):
+    """Phase 17: data parallelism (`jnerf_tpu_torch/parallel`).  Two ranks
+    share the card over gloo in `dryrun_multichip(2)`: the collectives
+    checked on CUDA tensors, the flagship step after the step-300 refresh
+    in bf16 (the JAX dry run's config) and in f32, and the two-window
+    train_range.  This process then runs each flagship step alone from the
+    same seed (mesh=None) and holds every rank to it: in f32 every gradient
+    within 1e-5 of its largest entry, in both the loss at rtol 1e-5 and the
+    grid at rtol 1e-5 / atol 1e-6 with the bitfield equal; kernel B
+    launched once and kernel F at least once in each rank's step.  Then `dryrun_multichip(1)`: NCCL at
+    world size 1, the collectives run.  Returns each rank's launches."""
+    from jnerf_tpu_torch.parallel import dryrun
+
+    t_phase = phase_start(torch)
+    if dryrun.choose_backend(2, "cuda") != "gloo":
+        raise SystemExit("two ranks on one card must take gloo")
+    t0 = time.perf_counter()
+    ranks = dryrun.dryrun_multichip(2, device="cuda")
+    gloo_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    fails = []
+    for key, spec in (("flagship", dryrun.flagship_spec()),
+                      ("flagship_f32", dryrun.flagship_spec(fp16=False))):
+        one = dryrun.step_case(None, dev, spec)
+        for r, res in enumerate(ranks):
+            got = res[key]
+            loss_gap = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+            grid = got["grid"]["density_grid"] - one["grid"]["density_grid"]
+            grid_ok = bool((grid.abs() <= 1e-6 + 1e-5
+                            * one["grid"]["density_grid"].abs()).all())
+            bits = int((got["grid"]["bitfield"]
+                        != one["grid"]["bitfield"]).sum())
+            gaps = grad_gaps(got["grads"], one["grads"])
+            print(f"parallel {key} rank {r}: loss {got['loss']:.7f} vs "
+                  f"{one['loss']:.7f} (one process), rel gap {loss_gap:.2e}; "
+                  f"grid max |diff| {float(grid.abs().max()):.2e}, {bits} "
+                  f"bitfield cells differ; gradient max |diff| / largest "
+                  "entry " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()),
+                  flush=True)
+            if not loss_gap <= 1e-5:
+                fails.append(f"{key} rank {r}: loss")
+            if not (grid_ok and bits == 0):
+                fails.append(f"{key} rank {r}: grid")
+            if key == "flagship_f32" and max(gaps.values()) > 1e-5:
+                fails.append(f"{key} rank {r}: gradients")
+        print(f"parallel {key}: steps/s per rank "
+              f"{[round(r[key]['steps_per_s'], 3) for r in ranks]} "
+              f"(8 steps after the compared one), one process "
+              f"{one['steps_per_s']:.3f}; step s per rank "
+              f"{[round(r[key]['step_s'], 4) for r in ranks]}, one process "
+              f"{one['step_s']:.4f}; refresh s per rank "
+              f"{[round(r[key]['refresh_s'], 4) for r in ranks]}, one "
+              f"process {one['refresh_s']:.4f}; peak MiB per rank "
+              f"{[round(r[key]['peak_mib'], 1) for r in ranks]}, one process "
+              f"{one['peak_mib']:.1f}; model rows per rank "
+              f"{[r[key]['model_rows'] for r in ranks]} vs "
+              f"{one['model_rows']}; launches per rank "
+              f"{[r[key]['launches']['step'] for r in ranks]}, on "
+              f"{card_line()}", flush=True)
+        for r in ranks:
+            step = r[key]["launches"]["step"]
+            if step["B"] != 1 or step["F"] < 1:
+                fails.append(f"{key}: launches {step}")
+    wins = [r["windows"] for r in ranks]
+    print(f"parallel windows: shapes per rank {[w['shapes'] for w in wins]}, "
+          f"steps/s per rank {[round(w['steps_per_s'], 3) for w in wins]}, "
+          f"peak MiB per rank {[round(w['peak_mib'], 1) for w in wins]}",
+          flush=True)
+    if not all(w["adapt_armed"] and len(w["shapes"]) == 2 for w in wins):
+        fails.append("windows")
+    if fails:
+        raise SystemExit(f"phase 17 failed: {fails}")
+    if dryrun.choose_backend(1, "cuda") != "nccl":
+        raise SystemExit("one rank on one card must take NCCL")
+    t0 = time.perf_counter()
+    nccl = dryrun.dryrun_multichip(1, device="cuda")[0]
+    nccl_s = time.perf_counter() - t0
+    step = nccl["flagship"]["launches"]["step"]
+    if step["B"] != 1 or step["F"] < 1:
+        raise SystemExit(f"the NCCL step launched {step}")
+    print(f"parallel: gloo x2 {gloo_s:.3f} s, NCCL x1 {nccl_s:.3f} s "
+          f"(flagship steps/s {nccl['flagship']['steps_per_s']:.3f}), on "
+          f"{card_line()}", flush=True)
+    secs, peak = phase_end(torch, "parallel", t_phase)
+    return dict(launches=[r["flagship"]["launches"] for r in ranks],
+                nccl_launches=nccl["flagship"]["launches"], phase_s=secs)
+
+
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source and the g++ build of the host-side
     marching tetrahedra, started together."""
@@ -2227,9 +2331,10 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-16 (the CLI, the xor kernels, the probe refresh, the mesh
-    tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF and
-    Recursive-NeRF) in ``tmp``; returns the kernels line."""
+    """Phases 8-17 (the CLI, the xor kernels, the probe refresh, the mesh
+    tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF,
+    Recursive-NeRF and data parallelism) in ``tmp``; returns the kernels
+    line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -2260,6 +2365,9 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     run_svox2(torch, run_net, counters, scene, tmp)
     run_pixelnerf(torch, counters, tmp)
     run_recursive_nerf(torch, counters, tmp)
+    par = run_parallel(torch)
+    rank_launches = {k: [{"refresh": r["refresh"][k], "step": r["step"][k]}
+                         for r in par["launches"]] for k in ("F", "B")}
 
     head = "step f8l4@2^19"
     others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")
@@ -2283,6 +2391,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             probe_path_launches=probe["launches"]["F"],
             probe_refresh_launches=probe["refresh_launches"],
             mesh_tool_launches=mesh["launches"],
+            parallel_rank_launches=rank_launches["F"],
             f32_ms=hs[head]["fwd"]["f32_ms"],
             **{k: {m: hs[k]["fwd"][m] for m in fwd_keys
                    + (("launches",) if k.startswith("render") else ())}
@@ -2300,6 +2409,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             quality_path_launches=quality_launches["bwd"],
             cli_path_launches=cli["linear_rows"]["train_launches"]["B"],
             probe_path_launches=probe["launches"]["B"],
+            parallel_rank_launches=rank_launches["B"],
             **{k: {m: hs[k]["bwd"][m] for m in ("ms", "plain_ms", "bound_ms",
                                                 "library_ms")}
                for k in others}),

@@ -9,7 +9,8 @@ port's own PNG decoder (`dataset_util.read_image`) and keeps images,
 poses and intrinsics on its device as tensors, with the fields that
 `SyntheticSpheresDataset` gives the runner.  As in the JAX package, the
 distortion coefficients k1, k2, p1, p2 are carried in ``metadata`` and not
-applied to the rays.
+applied to the rays.  ``PixelBatches`` gives both datasets the JAX
+package's batch iterator and ``sample_batch``.
 """
 
 from __future__ import annotations
@@ -103,8 +104,39 @@ def rays_for_image(transform, focal_length, principal_point, W, H):
     return rays_o, rays_d
 
 
+class PixelBatches:
+    """Random pixel batches of a dataset that holds its images as flat
+    ``image_data`` [n_images*H*W, C] and its cameras as ``transforms_gpu``,
+    ``focal_lengths`` and ``principal_points`` (the JAX datasets' batch
+    methods).  Iterating draws ``batch_size`` pixels from the numpy
+    generator ``_rng``, which the dataset seeds as the JAX package's does,
+    so that both packages iterate over the same pixels."""
+
+    def sample_batch(self, generator=None, idx=None):
+        """(img_ids [B], rays_o [B, 3], rays_d [B, 3], rgba [B, C]) of
+        ``batch_size`` pixels; ``idx`` [B], the flat pixel indices, are
+        drawn from ``generator`` unless given."""
+        if idx is None:
+            idx = torch.randint(0, self.n_images * self.H * self.W,
+                                (self.batch_size,), generator=generator,
+                                device=self.image_data.device)
+        img_ids, rays_o, rays_d = rays_from_pixels(
+            idx, self.transforms_gpu, self.focal_lengths,
+            self.principal_points, self.W, self.H)
+        return img_ids, rays_o, rays_d, self.image_data[idx]
+
+    def __next__(self):
+        idx = self._rng.integers(0, self.n_images * self.H * self.W,
+                                 size=self.batch_size)
+        return self.sample_batch(idx=torch.from_numpy(idx).to(
+            self.image_data.device))
+
+    def __iter__(self):
+        return self
+
+
 @DATASETS.register_module()
-class NerfDataset:
+class NerfDataset(PixelBatches):
     def __init__(
         self,
         root_dir,
@@ -135,6 +167,7 @@ class NerfDataset:
         self.have_img = have_img
         self.device = torch.device(device) if device is not None else None
         self.n_images = 0
+        self._rng = np.random.default_rng(0)
         self.load_data()
 
     # ------------------------------------------------------------------ load

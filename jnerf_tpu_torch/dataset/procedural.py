@@ -22,13 +22,13 @@ import numpy as np
 import torch
 
 from jnerf_tpu_torch.utils.registry import DATASETS
-from .dataset import matrix_nerf2ngp, rays_for_image
+from .dataset import PixelBatches, matrix_nerf2ngp, rays_for_image
 from .dataset_util import NERF_SCALE, fov_to_focal_length
 from .synthetic import _look_at_pose, render_analytic
 
 
 @DATASETS.register_module()
-class SyntheticSpheresDataset:
+class SyntheticSpheresDataset(PixelBatches):
     def __init__(
         self,
         batch_size=4096,
@@ -82,6 +82,7 @@ class SyntheticSpheresDataset:
         self.image_data = torch.stack(images).reshape(
             self.n_images * self.H * self.W, 4)
         self.transforms_gpu = torch.from_numpy(np.stack(transforms)).to(device)
+        self._rng = np.random.default_rng(seed)  # draws the batch iterator's pixels
 
     def generate_rays_total_test(self, img_id: int):
         """Full-image rays (rays_o, rays_d) [H*W, 3] of dataset camera

@@ -6,6 +6,12 @@ static-shape candidate selection of `ops.ray_march`, the refresh is the
 dense alternating-half sweep (``grid_update_mode='sweep'``, the default)
 or the reference's sampled probe refresh (``'probe'``), and
 ``update_batch_rays`` is the same deadband controller on the host.
+``sample`` and ``rays2rgb`` keep the reference's eager signatures.
+
+Under a mesh (``self.mesh``, set by ``Runner.mesh``; `jnerf_tpu_torch.parallel`)
+each rank runs the refresh's density queries on its slice of the query
+axis and the results are gathered, so that every rank holds the same grid;
+the refresh's random draws are made at their global shape on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from jnerf_tpu_torch.ops.occupancy import (
     update_bitfield,
 )
 from jnerf_tpu_torch.ops.ray_march import MarchConfig, RaySamples, sample_rays
+from jnerf_tpu_torch.parallel import replicated, shard_rays
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.registry import SAMPLERS
 
@@ -60,6 +67,7 @@ class DensityGridSampler:
             (self.target_batch_size if cb is True else int(cb))
         )
         self.const_dt = bool(cfg.const_dt)
+        self.background_color = list(cfg.background_color or [0, 0, 0])
 
         self.grid_config: GridConfig = make_grid_config(
             self.dataset.aabb_range,
@@ -85,6 +93,8 @@ class DensityGridSampler:
         # Cross-window EMA of the measured demand per ray (host float).
         self._demand_ema: float | None = None
         self.state = None  # set by init_state()
+        self.mesh = None  # a parallel.Mesh, set by Runner.mesh
+        self._last_samples: RaySamples | None = None  # kept by sample()
 
     # ----------------------------------------------------------------- state
     def _samples_for_rays(self, n_rays: int) -> int:
@@ -126,6 +136,48 @@ class DensityGridSampler:
             return render_rays(raw, samples.dts, samples.valid)
         rgb, _ = render_rays(raw, samples.dts, samples.valid, None, background)
         return rgb
+
+    # -------------------------------------------------- reference-shaped API
+    def sample(self, img_ids, rays_o, rays_d, rgb_target=None,
+               is_training=False, generator=None, u=None):
+        """March rays [R, 3] at the training (``is_training``) or the
+        inference budget, keep the samples for ``rays2rgb`` and return
+        (positions, dirs) flattened to [R*S, 3], like the reference's
+        compacted coordinate buffers.  A training march adds its demand to
+        the measured batch size.  ``u`` [R] is the start jitter, drawn from
+        ``generator`` unless given; ``img_ids`` and ``rgb_target`` are
+        accepted for the reference's signature and not used."""
+        del img_ids, rgb_target
+        if self.state is None:
+            raise RuntimeError("call init_state() first")
+        n = (self.n_samples_per_ray if is_training
+             else self.inference_samples_per_ray)
+        samples = self.sample_fixed(self.state, rays_o, rays_d, generator, n,
+                                    u=u)
+        self._last_samples = samples
+        if is_training:
+            self.state["measured_batch_size"] = (
+                self.state["measured_batch_size"] + samples.count.sum())
+        r, s = samples.dts.shape
+        return samples.positions.reshape(r * s, 3), samples.dirs.reshape(r * s, 3)
+
+    def rays2rgb(self, network_outputs, training_background_color=None,
+                 inference=False):
+        """Composite the raw outputs [R*S, 4] of the last ``sample``'s
+        positions: rgb [R, 3] over ``training_background_color`` (the
+        config's background colour unless given), or with ``inference``
+        (rgb, opacity) with no background term."""
+        if self._last_samples is None:
+            raise RuntimeError("call sample() first")
+        if inference:
+            return self.composite(self._last_samples, network_outputs,
+                                  inference=True)
+        bg = training_background_color
+        if bg is None:
+            bg = torch.tensor(self.background_color, dtype=torch.float32,
+                              device=network_outputs.device)
+        return self.composite(self._last_samples, network_outputs,
+                              background=bg)
 
     # ----------------------------------------------------------- grid update
     def update_density_grid_fn(self, state, first_step: bool, generator=None,
@@ -231,11 +283,14 @@ class DensityGridSampler:
     @torch.no_grad()
     def _chunked_density(self, warped):
         """Raw density [n] of warped positions [n, 3], in chunks of
-        SWEEP_CHUNK queries so that peak memory stays bounded."""
-        return torch.cat([
-            self.model.density(warped[i:i + SWEEP_CHUNK])[:, 0]
-            for i in range(0, warped.shape[0], SWEEP_CHUNK)
+        SWEEP_CHUNK queries so that peak memory stays bounded; under a
+        mesh, each rank queries its slice and the slices are gathered."""
+        local = shard_rays(warped, self.mesh)
+        raw = torch.cat([
+            self.model.density(local[i:i + SWEEP_CHUNK])[:, 0]
+            for i in range(0, local.shape[0], SWEEP_CHUNK)
         ])
+        return replicated(raw, self.mesh, warped.shape[0])
 
     def grid_update_counts(self, training_step: int):
         """(n_uniform, n_nonuniform) cells a probe refresh samples

@@ -30,6 +30,18 @@ is the Adam state as a plain dict ``{"count", "mu", "nu"}`` with the
 moments in the same tree.  ``load_ckpt`` also reads the JAX runner's
 checkpoints, whose Adam state is optax's (found by its field names; that
 needs optax to unpickle).
+
+Data parallelism (``Runner.mesh``, a `jnerf_tpu_torch.parallel.Mesh`; the
+JAX runner's mesh hook): an n-rank step computes the one-process step's
+function from the same seed.  Every rank draws the global batch, marches
+its slice of the rays, and gathers the march outputs, so that compaction
+caps the global batch; each rank runs the model on its slice of the model
+rows, the raw outputs are gathered through autograd, every rank computes
+the whole loss, and one all-reduce sums the gradients before the
+optimizer.  ``train_range`` checks at each window that the ranks hold the
+same batch shape.  In ``train`` every rank renders the validation images,
+whose jitter comes from the shared generator, so that the ranks' draws stay
+in step; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -46,6 +58,13 @@ from jnerf_tpu_torch.dataset.dataset_util import write_image
 from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
 from jnerf_tpu_torch.ops.compact import compact_indices, render_rays_compact
 from jnerf_tpu_torch.ops.composite import density_l1_reg, render_rays
+from jnerf_tpu_torch.parallel import (
+    all_reduce_grads,
+    check_same,
+    gather_rows,
+    replicated,
+    shard_rays,
+)
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.convert import (
     jax_params_to_state_dict,
@@ -126,6 +145,19 @@ class Runner:
         # (host counter, event, n_steps, n_rays_then) of the last finished
         # window, consumed by the lagged batch adaptation in train_range.
         self._pending_adapt = None
+        self.mesh = None
+
+    @property
+    def mesh(self):
+        """The data-parallel mesh (`jnerf_tpu_torch.parallel.Mesh`), or
+        None for one process; setting it sets the sampler's too, whose
+        refresh splits its density queries over the same ranks."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, m):
+        self._mesh = m
+        self.sampler.mesh = m
 
     # ------------------------------------------------------------------ step
     def forward_loss(self, n_rays: int, n_samples: int, idx=None, bg=None,
@@ -134,40 +166,58 @@ class Runner:
 
         ``idx`` [R] (flat pixel indices), ``bg`` [R, 3] (random background)
         and ``u`` [R] (march start jitter) are drawn from the runner's
-        generator unless given.  Returns (total, main, samples): total =
-        main + the early-training density regularizer.
+        generator unless given, at the global batch's shape under a mesh
+        too.  Returns (total, main, samples): total = main + the
+        early-training density regularizer; under a mesh each rank's
+        total is the whole batch's, and ``samples`` the whole batch's.
         """
         ds = self.dataset["train"]
-        dev, gen = self.device, self.generator
+        dev, gen, mesh = self.device, self.generator, self.mesh
         n_pixels = ds.n_images * ds.H * ds.W
         if idx is None:
             idx = torch.randint(0, n_pixels, (n_rays,), generator=gen, device=dev)
-        _img_ids, rays_o, rays_d = rays_from_pixels(
-            idx, ds.transforms_gpu, ds.focal_lengths, ds.principal_points,
-            ds.W, ds.H)
-        rgba = ds.image_data[idx]
         if bg is None:
             bg = torch.rand((n_rays, 3), generator=gen, device=dev)
+        if u is None:
+            u = torch.rand((n_rays,), generator=gen, device=dev)
+        rgba = ds.image_data[idx]
         target = rgba[:, :3] * rgba[:, 3:] + bg * (1.0 - rgba[:, 3:])
 
+        # Each rank marches its slice of the rays; every rank then holds
+        # the whole batch's samples.
+        _img_ids, rays_o, rays_d = rays_from_pixels(
+            shard_rays(idx, mesh), ds.transforms_gpu, ds.focal_lengths,
+            ds.principal_points, ds.W, ds.H)
         grid_state = self.sampler.state
         samples = self.sampler.sample_fixed(grid_state, rays_o, rays_d, gen,
-                                            n_samples, u=u)
+                                            n_samples, u=shard_rays(u, mesh))
+        if mesh is not None:
+            # The step reads neither numsteps nor truncated.
+            samples = samples._replace(
+                numsteps=None, truncated=None,
+                **{k: replicated(getattr(samples, k).contiguous(), mesh, n_rays)
+                   for k in ("positions", "dirs", "dts", "valid", "count")})
         m_compact = self.sampler.compacted_batch
-        if m_compact is not None and n_rays * n_samples > m_compact:
+        compact = m_compact is not None and n_rays * n_samples > m_compact
+        if compact:
             # Ragged compaction: the model runs on the M kept samples.
             info = compact_indices(samples.valid, m_compact)
-            pos_c = samples.positions.reshape(-1, 3)[info.idx]
-            dirs_c = samples.dirs.reshape(-1, 3)[info.idx]
+            pos = samples.positions.reshape(-1, 3)[info.idx]
+            dirs = samples.dirs.reshape(-1, 3)[info.idx]
+        else:
+            pos = samples.positions.reshape(-1, 3)
+            dirs = samples.dirs.reshape(-1, 3)
+        # Each rank runs the model on its slice of the rows.
+        raw = gather_rows(self.model(shard_rays(pos, mesh),
+                                     shard_rays(dirs, mesh)),
+                          mesh, pos.shape[0])
+        if compact:
             dts_c = torch.where(info.slot_valid,
                                 samples.dts.reshape(-1)[info.idx],
                                 torch.zeros((), device=dev))
-            raw = self.model(pos_c, dirs_c)
             rgb, _ = render_rays_compact(raw, dts_c, info, background=bg)
             reg_sigma, reg_valid = raw[:, 3], info.slot_valid
         else:
-            raw = self.model(samples.positions.reshape(-1, 3),
-                             samples.dirs.reshape(-1, 3))
             rgb, _ = render_rays(raw.reshape(n_rays, n_samples, 4),
                                  samples.dts, samples.valid, None, bg)
             reg_sigma = raw[:, 3].reshape(n_rays, n_samples)
@@ -185,6 +235,7 @@ class Runner:
             idx=idx, bg=bg, u=u)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        all_reduce_grads(self.params, self.mesh)
         self.optimizer.step()
         if self.ema is not None:
             self.ema.step(self.params, self.ema_state)
@@ -203,12 +254,17 @@ class Runner:
         whose device-to-host copy finished while this window ran, so the
         host never waits for the device there.  ``tick(n, n_rays,
         n_samples_per_ray)``, if given, is called after each window's
-        steps are enqueued.  Returns the last step's main loss.
+        steps are enqueued.  Returns the last step's main loss.  Under a
+        mesh the ranks check at each window that they hold the same shape,
+        since ranks with diverged shapes would wait on each other forever.
         """
         freq = self.sampler.update_den_freq
         loss = None
         i = start
         while i < end:
+            check_same(self.mesh, f"the batch shape at step {i}",
+                       n_rays=self.sampler.n_rays_per_batch,
+                       n_samples=self.sampler.n_samples_per_ray)
             n = min(freq - (i % freq), end - i)
             self.cfg.m_training_step = i
             if i % freq == 0:
@@ -255,8 +311,13 @@ class Runner:
         validation render every ``val_freq`` steps and the throughput over
         the last 256 steps (`utils.metrics.ThroughputMeter`, host clock);
         then save ``<save_path>/params.pkl`` and render and score the test
-        set; returns ``test()``'s mean PSNR."""
+        set; returns ``test()``'s mean PSNR.  Under a mesh every rank
+        trains and renders the validation images (their jitter comes from
+        the shared generator), and rank 0 alone prints, writes and renders
+        the test set (the others return None)."""
         from jnerf_tpu_torch.utils.metrics import ThroughputMeter
+
+        main_rank = self.mesh is None or self.mesh.rank == 0
 
         meter = ThroughputMeter(window=256)
 
@@ -276,7 +337,10 @@ class Runner:
                     f"SAMPLES/RAY={self.sampler.n_samples_per_ray}")
             if i % self.val_freq == 0 and i < self.tot_train_steps:
                 line += f" | VAL PSNR={float(mse2psnr(self.val_img(i))):.3f}"
-            print(f"{line} | {meter.summary()}", flush=True)
+            if main_rank:
+                print(f"{line} | {meter.summary()}", flush=True)
+        if not main_rank:
+            return None
         self.save_ckpt(os.path.join(self.save_path, "params.pkl"))
         return self.test()
 
@@ -441,12 +505,14 @@ class Runner:
         return mse_list
 
     def val_img(self, it):
-        """Render a random validation image, save it and its target, and
-        return its MSE."""
+        """Render a random validation image, save it and its target (under
+        a mesh, on rank 0 only), and return its MSE."""
         img, _alpha, img_tar = self.render_img(dataset_mode="val")
-        os.makedirs(self.save_path, exist_ok=True)
-        self.save_img(os.path.join(self.save_path, f"img{it}.png"), img)
-        self.save_img(os.path.join(self.save_path, f"target{it}.png"), img_tar)
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(self.save_path, exist_ok=True)
+            self.save_img(os.path.join(self.save_path, f"img{it}.png"), img)
+            self.save_img(os.path.join(self.save_path, f"target{it}.png"),
+                          img_tar)
         return img2mse(torch.from_numpy(img), torch.from_numpy(img_tar))
 
     def render(self, load_ckpt=True, save_path=None):

@@ -1,8 +1,8 @@
 """General utilities (seeding, checkpoint discovery, file checks).
 
-Counterpart of `jnerf_tpu/utils/general.py`.  Its ``sync``, a JAX
-collective over a device mesh, waits for the port's data-parallel slice
-(ROADMAP queue 1 item 13).
+Counterpart of `jnerf_tpu/utils/general.py`; ``sync`` reduces over a
+`jnerf_tpu_torch.parallel` mesh where the JAX function reduces over a
+named mesh axis.
 """
 
 from __future__ import annotations
@@ -52,3 +52,23 @@ def search_ckpt(ckpt_dir: str, prefix: str = "ckpt_", suffix: str = ".pkl"):
         if m and int(m.group(1)) > best_iter:
             best_iter, best = int(m.group(1)), name
     return best
+
+
+def sync(data, reduce_mode="mean", mesh=None):
+    """Sum (``reduce_mode="sum"``) or mean (``"mean"``) of a metric over
+    the ranks of ``mesh`` (`jnerf_tpu_torch.parallel.Mesh`), as a tensor
+    on the mesh's device; without a mesh the value as a tensor.  Python
+    numbers pass through, as in the JAX package."""
+    import torch
+
+    if reduce_mode not in ("mean", "sum"):
+        raise ValueError(f"reduce_mode={reduce_mode!r}: 'mean' or 'sum'")
+    if isinstance(data, (int, float)):
+        return data
+    if mesh is None:
+        return torch.as_tensor(data)
+    import torch.distributed as dist
+
+    data = torch.as_tensor(data, device=mesh.device).clone()
+    dist.all_reduce(data, group=mesh.group)
+    return data / mesh.size if reduce_mode == "mean" else data

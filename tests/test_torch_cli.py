@@ -237,11 +237,13 @@ def test_user_path_imports_no_jax_or_imaging_library(tmp_path):
     validation render, the checkpoint and the test set (PNGs written), the
     NGP mesh tool on that checkpoint, NeuSRunner.train() through a
     validation image (PNGs, the JET depth) and a validation mesh,
-    MipRunner.train() through a validation image and its checkpoint, and
+    MipRunner.train() through a validation image and its checkpoint,
     Svox2Runner.train() across an upsample into the sparse grid, then its
-    .npz, pull in none of JAX, the JAX package, optax, yaml, PIL, imageio,
-    cv2 or tqdm (a fresh interpreter, beyond what torch itself imports):
-    the machine with the card has none of them."""
+    .npz, and importing the data-parallel package and its dry run (whose
+    spawned ranks import the same), pull in none of JAX, the JAX package,
+    optax, yaml, PIL, imageio, cv2 or tqdm (a fresh interpreter, beyond
+    what torch itself imports): the machine with the card has none of
+    them."""
     scene = str(tmp_path / "scene")
     cfg = write_blender_cfg(tmp_path, scene, steps=20)
     neus_scene = str(tmp_path / "scan")
@@ -286,6 +288,7 @@ svox = Svox2Runner(device="cpu")
 svox.train()
 assert svox.grid.sparse
 svox.save()
+import jnerf_tpu_torch.parallel, jnerf_tpu_torch.parallel.dryrun
 new = {{m.split(".")[0] for m in set(sys.modules) - before}}
 print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
                     "cv2", "imageio", "tqdm"}}))
