@@ -8,12 +8,15 @@ on failure:
 
 1. the card: its name and power limit (nvidia-smi);
 2. build the CUDA kernels from jnerf_tpu_torch/csrc (hash_encode.cu and
-   fused_mlp.cu, in parallel), with ptxas' register and spill lines;
+   fused_mlp.cu) and the host-side C++ cores (marching tetrahedra, the
+   JPEG codec, the MPEG-4 encoder), all in parallel, with ptxas' register
+   and spill lines;
 3. each kernel against its plain PyTorch twin on the card at the main
    path's shapes, with errors and times: the hash kernels F and B at 2^17
    uniform samples (f8l4 at a 2^19 level cap and f2l16 at 2^18; kernel F
    timed with the bf16 output the path uses, and checked to be its f32
-   output rounded); the fused MLP kernels F-MLP and D-MLP at 2^17 rows (the
+   output rounded; kernel B held to the f64 sum of its contributions, the
+   f32 twin's error beside it); the fused MLP kernels F-MLP and D-MLP at 2^17 rows (the
    training M) and 2^20 random rows (a render chunk's size), B-MLP at 2^17;
 4. the slice: 48 training steps of the f8l4+m17f2k19 bench headline
    (Runner(device='cuda').train_range), with launch counts that show the
@@ -59,11 +62,11 @@ on failure:
    test PSNR held 10 dB over the background's, then one probe and one
    sweep refresh of the trained field timed;
 10. the NGP mesh tool (`python -m jnerf_tpu_torch.tools.extract_mesh`, its
-   entry point in this process) at 512^3 on phase 8's trained linear field:
+   entry point in this process) at 384^3 on phase 8's trained linear field:
    both PLYs, over 1000 vertices inside the unit cube, kernel F counted in
    the density grid and the vertex-colour render, each step timed; then
    the native and numpy marching tetrahedra on a 128^3 slice of the grid
-   (every 4th point of each axis), equal and timed;
+   (every 3rd point of each axis), equal and timed;
 11. vanilla NeRF: projects/nerf/configs/nerf_base.py at full width (8 x
    256, frequency encodings of 10 and 4 octaves) through the CLI on phase
    8's scene, 1024 steps at learning rate 5e-4 (the config's 1e-2 does not
@@ -73,7 +76,7 @@ on failure:
    with 257 outputs, background NeRF 8 x 256, colour 4 x 256; 512 rays of
    64 + 64 + 32 samples) through the CLI (--type mesh) on a DTU-format
    scene of 32 images of 400 x 300 written by the port: the
-   geometric-init mesh at 128^3, --task train for 1000 steps (a checkpoint
+   geometric-init mesh at 128^3, --task train for 800 steps (a checkpoint
    at the end; f32, TF32 off), then --task validate_mesh at 512^3.  The
    colour loss of the last 100 steps must be at most half that of the
    first 100, the eikonal term finite, and the trained mesh's vertices
@@ -82,7 +85,7 @@ on failure:
 13. Mip-NeRF: projects/mipnerf/configs/mip_base.py at full width (8 x 256
    trunk, skip after layer 4, 1 x 128 colour branch, 2 levels x 128
    samples, 4096 rays; f32, TF32 off) through the CLI on phase 8's scene:
-   one shrunk step on the card against the CPU, --task train for 512
+   one shrunk step on the card against the CPU, --task train for 384
    steps, then --task test from params.pkl, whose PSNR must clear that of
    predicting black everywhere by 3 dB; no repo kernel runs;
 14. Plenoxels: projects/svox2/configs/svox2_base.py at full width (256^3,
@@ -116,9 +119,31 @@ on failure:
    of their largest entries, the losses at rtol 1e-5, the refreshed grids
    at rtol 1e-5 / atol 1e-6 with the bitfields equal), kernels F and B
    counted in each rank's step; then `dryrun_multichip(1)`, NCCL at world
-   size 1.
+   size 1;
+18. the real-capture configs through the CLI (`run_net.main` in this
+   process), on captures that the port writes on the card in the real
+   captures' layouts (the spheres in a patterned room, opaque JPEG
+   photographs at quality 95 through write_image): projects/ngp/configs/
+   ngp_fox.py (full width, aabb_scale 4 from the json: 3 grid cascades,
+   cone-angle steps) on a fox layout (50 + 2 frames of 1080 x 1920,
+   images/0001.jpg, ..., fl_x/fl_y/cx/cy and nonzero k1/k2/p1/p2), --task
+   train for 1536 of the config's 40,000 steps and --task test, the
+   encode and decode seconds printed; then ngp_llff.py (aabb_scale 64: 7
+   cascades) on an LLFF layout (20 views of 4032 x 3024 as
+   images/IMG_*.JPG and poses_bounds.npy, no images_8/, so the loader
+   decodes the JPEGs to minify them to 504 x 378), --task train for 1024
+   steps, --task test and --task render, whose demo.mp4 (80 frames at 28
+   fps) a box walk checks.  Each TOTAL TEST PSNR must clear that of
+   predicting each test frame's mean colour everywhere by 10 dB, and the
+   test task must read within 0.5 dB of the train task's; kernels F and B
+   must run in every training task, F alone in the test and render
+   tasks, and both are checked against their twins and timed on two
+   steps' kept samples of each trained field (3,391,728 and 3,596,432
+   table entries).
 
-Each of phases 9-17 prints its time and its peak device memory.
+Each of phases 9-18 prints its time and its peak device memory.  To make
+room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
+steps (was 1000) and phase 13 for 384 (was 512).
 
 The last lines are the kernel table as JSON (each kernel with its bound:
 the larger of its bytes over the memory rate and its operations over the
@@ -141,7 +166,13 @@ N_SAMPLES = 1 << 17  # the kept-sample cap M of the headline config
 N_RENDER = 1 << 20   # model rows of one render chunk: 4096 rays x 256 samples
 HEADLINE_STEPS = 48
 # Kernel F equals its twin but for a rare bf16 rounding flip of one corner
-# product (~5e-4 at |table| ~ 0.1); kernel B sums in the atomics' order.
+# product (~5e-4 at |table| ~ 0.1).  Kernel B sums in f32 in the atomics'
+# order; it is held to the f64 sum of the same f32 contributions, not to
+# its f32 twin, whose own summation error reached 7.6e-6 of the largest
+# entry on phase 18's fox field and 4.3e-6 on its LLFF field (up to
+# 131,072 contributions to one entry), where the kernel stood 3.1e-7 and
+# 7.5e-7 from the exact sum (an H100): one run had put the kernel
+# 1.355e-5 from the twin.
 FWD_ATOL = 1e-3
 BWD_RTOL_OF_MAX = 1e-5
 # The fused MLP kernels and their twins round the same bf16 operands at the
@@ -190,8 +221,10 @@ XOR_N_ENTRIES = 6_098_120
 # Phase 9: the headline with the probe-mode grid refresh.
 PROBE_STEPS = 1024
 PROBE_PSNR_OVER_BG = 10.0
-# Phase 10: the NGP mesh tool on phase 8's linear field.
-MESH_RES = 512
+# Phase 10: the NGP mesh tool on phase 8's linear field, at 384^3 of the
+# tool's 512^3, cut with phases 12-13 to make room for phase 18 (at 512^3
+# the phase took 69.5 s on an H100, 27.4 s of it marching on the host).
+MESH_RES = 384
 # Phase 11: vanilla NeRF (nerf_base.py) on phase 8's scene.  The config's
 # learning rate, 1e-2, does not train its 8 x 256 MLP: on an H100,
 # `python3 -m jnerf_tpu_torch.tools.nerf_lr_probe` read a test PSNR of
@@ -201,16 +234,19 @@ VANILLA_STEPS = 1024
 VANILLA_LR = 5e-4
 VANILLA_PSNR_OVER_BG = 3.0
 # Phase 12: NeuS (neus_womask.py) on a DTU-format scene of the port's.
-# 1000 of the config's 100,000 steps, cut from 1500 with phase 13 for the
-# script's time (over 1500 steps on an H100 the colour loss fell from 1.081
-# to 0.025, its pass bar being half).
-NEUS_STEPS = 1000
+# 800 of the config's 100,000 steps: cut from 1500 with phase 13 for the
+# script's time, then from 1000 for phase 18's (over 1500 steps on an H100
+# the colour loss fell from 1.081 to 0.025, its pass bar being half; the
+# loss logged at step 800 of a 1000-step run was 0.031 against 0.352 at
+# 100).
+NEUS_STEPS = 800
 NEUS_IMAGES, NEUS_H, NEUS_W = 32, 300, 400
 NEUS_INIT_RES = 128
-# Phase 13: Mip-NeRF (mip_base.py) on phase 8's scene, 512 of its 40,001
+# Phase 13: Mip-NeRF (mip_base.py) on phase 8's scene, 384 of its 40,001
 # steps: with 1024, and NeuS at 1500, the script took 818.0 s on an H100,
-# over its ~700 s aim (PERF.md section 6).
-MIP_STEPS = 512
+# over its ~700 s aim (PERF.md section 6); 512 read 32.180 dB against 17.2
+# for black, and phase 18 took the time of the last 128.
+MIP_STEPS = 384
 MIP_PSNR_OVER_BLACK = 3.0
 MIP_SMALL_RTOL = 1e-4
 # Phase 14: Plenoxels (svox2_base.py) on phase 8's scene: 512 dense steps
@@ -229,6 +265,19 @@ REC_ITERS, REC_STAGES = 800, (200, 400, 600)
 # Both: one small step on the card against the CPU: the loss within 1e-5
 # relative, the largest gradient |diff| within 1e-5 of the largest entry.
 MINI_SMALL_RTOL = 1e-5
+# Phase 18: the real-capture configs on captures in their layouts, JPEG
+# photographs written by the port: ngp_fox.py (the fox's 50 + 2 frames of
+# 1080 x 1920, aabb_scale 4) for FOX_STEPS of its 40,000 steps, ngp_llff.py
+# (fern's 20 views of 4032 x 3024, minified by 8, aabb_scale 64) for
+# LLFF_STEPS.  Each test PSNR must clear that of predicting each test
+# frame's mean colour everywhere by CAPTURE_PSNR_OVER_MEAN.
+FOX_STEPS = 1536
+LLFF_STEPS = 1024
+FOX_HW, LLFF_HW = (1080, 1920), (3024, 4032)
+CAPTURE_PSNR_OVER_MEAN = 10.0
+FOX_CASCADES, LLFF_CASCADES = 3, 7
+FOX_N_ENTRIES, LLFF_N_ENTRIES = 3_391_728, 3_596_432
+RENDER_FRAMES, RENDER_FPS = 80, 28
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -396,10 +445,13 @@ def check_hash_fwd(torch, hash_nbr, name, spec, pos):
 
 
 def check_hash(torch, hash_nbr, name, spec, pos, g):
-    """Kernels F and B against their twins on one spec and one set of
-    samples (positions pos [N, 3], f32 upstream gradient g [N, F*L]):
-    kernel F as check_hash_fwd; kernel B's error and time, and the time of
-    the scatter alone (index_put_ with accumulate=True of the weighted
+    """Kernels F and B against their plain versions on one spec and one set
+    of samples (positions pos [N, 3], f32 upstream gradient g [N, F*L]):
+    kernel F as check_hash_fwd; kernel B's error against the f64 sum of
+    the same contributions (the twin's corner entries and weights, each
+    f32 product exact in f64; index_add_ in f64), the f32 twin's error
+    beside it, kernel B's time against the twin's, and the time of the
+    scatter alone (index_put_ with accumulate=True of the weighted f32
     contributions, computed outside the timed region)."""
     dev = pos.device
     L, F = spec.n_levels, spec.n_features_per_level
@@ -408,22 +460,30 @@ def check_hash(torch, hash_nbr, name, spec, pos, g):
     bk = hash_nbr.grad_table(spec, pos, g)
     bp = hash_nbr.grad_table_plain(spec, pos, g)
     idx, wts = corner_entries(torch, hash_nbr, spec, pos)
-    vals = (wts[:, None] * g.reshape(n, F, L).permute(2, 0, 1)
-            .repeat_interleave(8, dim=0).reshape(-1, F))
+    vals64 = (wts.double()[:, None] * g.double().reshape(n, F, L)
+              .permute(2, 0, 1).repeat_interleave(8, dim=0).reshape(-1, F))
+    ref = torch.zeros((spec.n_entries, F), dtype=torch.float64,
+                      device=dev).index_add_(0, idx, vals64)
+    vals = vals64.float()  # the f32 products, rounded as f32 multiplies round
+    del vals64
     torch.cuda.synchronize()
-    b_err = float((bk - bp).abs().max())
-    b_max = float(bp.abs().max())
-    print(f"kernel B [{name}]: max abs err {b_err:.3e}, rel to max "
-          f"{b_err / b_max:.3e} (tolerance {BWD_RTOL_OF_MAX:g} of max |ref| = "
-          f"{b_max:.4g})", flush=True)
+    b_err = float((bk.double() - ref).abs().max())
+    twin_err = float((bp.double() - ref).abs().max())
+    b_max = float(ref.abs().max())
+    print(f"kernel B [{name}]: max abs err {b_err:.3e} from the f64 sum, rel "
+          f"to max {b_err / b_max:.3e} (tolerance {BWD_RTOL_OF_MAX:g} of max "
+          f"|ref| = {b_max:.4g}); the f32 twin's {twin_err / b_max:.3e}, "
+          f"kernel vs twin {float((bk - bp).abs().max()) / b_max:.3e}",
+          flush=True)
     if not b_err <= BWD_RTOL_OF_MAX * b_max:
-        raise SystemExit(f"kernel B disagrees with its plain twin at {name}")
+        raise SystemExit(f"kernel B disagrees with the sum at {name}")
 
     def scatter():
         acc = torch.zeros((spec.n_entries, F), dtype=torch.float32, device=dev)
         return acc.index_put_((idx,), vals, accumulate=True)
 
-    lib_err = float((scatter() - bp).abs().max())
+    lib_err = float((scatter().double() - ref).abs().max())
+    del ref
     ms, plain_ms, (k1, k2, p1, p2) = time_pair(
         lambda: hash_nbr.grad_table(spec, pos, g),
         lambda: hash_nbr.grad_table_plain(spec, pos, g))
@@ -1322,7 +1382,7 @@ def run_mesh_tool(torch, extract_mesh, counters, cfg_path):
         raise SystemExit(f"the mesh tool did not go through kernel F: "
                          f"{launches}, {counts}")
 
-    # Every 4th grid point of each axis: a 128^3 slice over the whole field.
+    # Every k-th grid point of each axis: a 128^3 slice over the whole field.
     k = max(1, MESH_RES // 128)
     block = np.ascontiguousarray(sigma[::k, ::k, ::k])
     out, mt_s = {}, {}
@@ -2206,9 +2266,244 @@ def run_parallel(torch):
                 nccl_launches=nccl["flagship"]["launches"], phase_s=secs)
 
 
+def mean_colour_psnr(torch, ds):
+    """Mean PSNR, over a split's images (opaque), of predicting each
+    image's mean colour everywhere."""
+    out = []
+    for i in range(ds.n_images):
+        img = torch.from_numpy(ds.image(i)[..., :3]).double()
+        mse = float(((img - img.mean(dim=(0, 1))) ** 2).mean())
+        out.append(-10.0 * math.log10(mse))
+    return sum(out) / len(out)
+
+
+class Stopwatch:
+    """Wraps ``owner.name`` (a function or method) to add up its seconds
+    and calls until ``restore()``; ``sync`` (e.g. torch.cuda.synchronize)
+    runs before each call's clock stops."""
+
+    def __init__(self, owner, name, sync=None):
+        self.owner, self.name = owner, name
+        self.orig = getattr(owner, name)
+        self.seconds, self.calls = 0.0, 0
+        orig, watch = self.orig, self
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if sync is not None:
+                sync()
+            watch.seconds += time.perf_counter() - t0
+            watch.calls += 1
+            return out
+
+        setattr(owner, name, timed)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.orig)
+
+
+def capture_config(path, base, scene, log_dir, steps):
+    """A user's config over a capture: ``base`` (ngp_fox.py or
+    ngp_llff.py) with the data, log directory and step count overridden."""
+    base = Path(__file__).resolve().parent / "projects/ngp/configs" / base
+    Path(path).write_text(textwrap.dedent(f"""\
+        _base_ = {str(base)!r}
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root_dir=dataset_dir),
+                       val=dict(root_dir=dataset_dir),
+                       test=dict(root_dir=dataset_dir))
+        log_dir = {log_dir!r}
+        tot_train_steps = {steps}
+    """))
+    return path
+
+
+def capture_tasks(torch, run_net, counters, cfg, steps, tasks):
+    """--task train (timed steps, peak memory) and then each of ``tasks``
+    through the CLI in this process, each task's launches counted; returns
+    (the train task's runner, results)."""
+    from jnerf_tpu_torch.runner import Runner
+
+    argv = ["--config-file", cfg, "--device", "cuda"]
+    steps_watch = Stopwatch(Runner, "train_range", torch.cuda.synchronize)
+    try:
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner, psnr = run_net.main(argv + ["--task", "train"])
+        torch.cuda.synchronize()
+        res = {"train": dict(task_s=time.perf_counter() - t0, psnr=psnr,
+                             launches=read_counts(counters),
+                             steps_per_s=steps / steps_watch.seconds,
+                             peak_mib=torch.cuda.max_memory_allocated()
+                             / 2**20)}
+    finally:
+        steps_watch.restore()
+    for task in tasks:
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        _, out = run_net.main(argv + ["--task", task])
+        torch.cuda.synchronize()
+        res[task] = dict(task_s=time.perf_counter() - t0, out=out,
+                         launches=read_counts(counters))
+    return runner, res
+
+
+def check_capture_run(name, runner, res, bar, cascades, n_entries, tasks):
+    """The cascade count, the hash table's size, the test PSNRs against
+    ``bar`` and each other, and kernels F and B in every task that
+    trains (F alone in those that only render), no other kernel."""
+    spec = runner.model.pos_encoder.spec
+    n_casc = runner.sampler.grid_config.max_cascade + 1
+    psnr, again = res["train"]["psnr"], res["test"]["out"]
+    print(f"{name}: {n_casc} grid cascades (const_dt "
+          f"{runner.sampler.const_dt}, cone angle "
+          f"{runner.sampler.march_config.cone_angle:.6f}), table "
+          f"{spec.n_entries} entries ({sum(s < r ** 3 for s, r in zip(spec.level_sizes, spec.resolutions))} "
+          f"hashed levels, per-level scale {spec.per_level_scale:.4f}); "
+          f"{res['train']['steps_per_s']:.3f} steps/s, train task "
+          f"{res['train']['task_s']:.3f} s, peak memory "
+          f"{res['train']['peak_mib']:.1f} MiB; TOTAL TEST PSNR {psnr:.3f} "
+          f"dB (train task), {again:.3f} dB (--task test), bar {bar:.3f} dB; "
+          + "; ".join(f"launches {t} {res[t]['launches']}"
+                      for t in ("train",) + tasks), flush=True)
+    if n_casc != cascades or spec.n_entries != n_entries:
+        raise SystemExit(f"{name}: {n_casc} cascades and {spec.n_entries} "
+                         f"entries, not {cascades} and {n_entries}")
+    if not (psnr >= bar and again >= bar
+            and abs(again - psnr) <= CLI_TEST_RETEST):
+        raise SystemExit(f"{name}: test PSNR {psnr:.3f} / {again:.3f} dB "
+                         f"against the bar {bar:.3f} dB")
+    for task in ("train",) + tasks:
+        n = res[task]["launches"]
+        trains = task == "train"
+        if n["F"] <= 0 or (n["B"] <= 0 if trains else n["B"] != 0) \
+                or any(n[k] for k in n if k not in ("F", "B")):
+            raise SystemExit(f"{name} --task {task} did not go through "
+                             f"kernels F and B alone: {n}")
+
+
+def run_captures(torch, run_net, hash_nbr, counters, tmp):
+    """Phase 18: the real-capture configs through the CLI on captures that
+    the port writes in their layouts: ngp_fox.py (train, test) on a
+    fox-layout capture and ngp_llff.py (train, test, render) on an
+    LLFF-layout one; kernels F and B checked and timed on two steps' kept
+    samples of each trained field.  Returns the results and checks."""
+    from jnerf_tpu_torch.dataset import dataset_util, llff_dataset
+    from jnerf_tpu_torch.dataset.synthetic import (
+        make_fox_capture, make_llff_capture,
+    )
+    from jnerf_tpu_torch.runner import runner as runner_module
+    from jnerf_tpu_torch.utils.mp4 import describe
+
+    t_phase = phase_start(torch)
+    out, hs = {}, {}
+    # (a) the fox layout: 50 + 2 JPEGs at 1080 x 1920.
+    fox = os.path.join(tmp, "fox")
+    enc = Stopwatch(dataset_util, "encode_jpeg")
+    try:
+        t0 = time.perf_counter()
+        make_fox_capture(fox, n_train=50, n_test=2, H=FOX_HW[0],
+                         W=FOX_HW[1], device="cuda")
+        write_s = time.perf_counter() - t0
+    finally:
+        enc.restore()
+    files = sorted(os.listdir(os.path.join(fox, "images")))
+    t0 = time.perf_counter()
+    shapes = {dataset_util.read_image_u8(os.path.join(fox, "images", f)).shape
+              for f in files}
+    dec_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(fox, "images", f)) for f in files)
+    print(f"fox capture: {len(files)} JPEGs of {sorted(shapes)} (quality 95, "
+          f"{size / 2**20:.1f} MiB) written in {write_s:.3f} s, of which "
+          f"encode {enc.seconds:.3f} s ({enc.calls} calls, "
+          f"{1e3 * enc.seconds / enc.calls:.1f} ms each); decode of the "
+          f"{len(files)} {dec_s:.3f} s ({1e3 * dec_s / len(files):.1f} ms "
+          f"each), on {card_line()}", flush=True)
+    if len(files) != 52 or shapes != {(*FOX_HW, 3)}:
+        raise SystemExit("fox capture: wrong files or shapes")
+    cfg = capture_config(os.path.join(tmp, "cfg_fox.py"), "ngp_fox.py", fox,
+                         os.path.join(tmp, "logs_fox"), FOX_STEPS)
+    runner, res = capture_tasks(torch, run_net, counters, cfg, FOX_STEPS,
+                                ("test",))
+    bar = mean_colour_psnr(torch, runner.dataset["test"]) \
+        + CAPTURE_PSNR_OVER_MEAN
+    check_capture_run("fox", runner, res, bar, FOX_CASCADES, FOX_N_ENTRIES,
+                      ("test",))
+    spec = runner.model.pos_encoder.spec
+    pos, g = capture_steps(runner, hash_nbr.HashEncode, FOX_STEPS, 2)
+    del runner
+    hs["fox"] = check_hash(torch, hash_nbr, "fox field aabb 4", spec, pos, g)
+    hs["fox"]["n"] = pos.shape[0]
+    del pos, g
+    out["fox"] = dict(res, encode_s=enc.seconds, decode_s=dec_s, bar=bar,
+                      frames=len(files))
+
+    # (b) the LLFF layout: 20 JPEGs at 4032 x 3024, minified by 8.
+    llff = os.path.join(tmp, "llff")
+    enc = Stopwatch(dataset_util, "encode_jpeg")
+    try:
+        t0 = time.perf_counter()
+        make_llff_capture(llff, n_views=20, H=LLFF_HW[0], W=LLFF_HW[1],
+                          device="cuda")
+        write_s = time.perf_counter() - t0
+    finally:
+        enc.restore()
+    print(f"llff capture: 20 JPEGs of {LLFF_HW[1]}x{LLFF_HW[0]} written in "
+          f"{write_s:.3f} s, "
+          f"of which encode {enc.seconds:.3f} s", flush=True)
+    cfg = capture_config(os.path.join(tmp, "cfg_llff.py"), "ngp_llff.py",
+                         llff, os.path.join(tmp, "logs_llff"), LLFF_STEPS)
+    dec = Stopwatch(llff_dataset, "read_image_u8")
+    frame_enc = Stopwatch(runner_module.Mp4Writer, "write")
+    try:
+        runner, res = capture_tasks(torch, run_net, counters, cfg, LLFF_STEPS,
+                                    ("test", "render"))
+    finally:
+        dec.restore()
+        frame_enc.restore()
+    print(f"llff minify: {dec.calls} JPEGs decoded in {dec.seconds:.3f} s "
+          f"({1e3 * dec.seconds / max(dec.calls, 1):.1f} ms each), "
+          f"{runner.W}x{runner.H} PNGs", flush=True)
+    small = (LLFF_HW[1] // 8, LLFF_HW[0] // 8)
+    if dec.calls != 20 or (runner.W, runner.H) != small:
+        raise SystemExit("llff: the minify did not decode the 20 JPEGs")
+    bar = mean_colour_psnr(torch, runner.dataset["test"]) \
+        + CAPTURE_PSNR_OVER_MEAN
+    check_capture_run("llff", runner, res, bar, LLFF_CASCADES,
+                      LLFF_N_ENTRIES, ("test", "render"))
+    video = describe(res["render"]["out"])
+    per_frame = res["render"]["task_s"] / RENDER_FRAMES
+    print(f"llff render: {res['render']['out']} {video}; "
+          f"{per_frame:.4f} s a frame (the task over {RENDER_FRAMES} frames; "
+          f"MPEG-4 encode {frame_enc.seconds / max(frame_enc.calls, 1):.4f} s "
+          f"a frame)", flush=True)
+    if video != dict(video, boxes=["ftyp", "moov", "mdat"], entry="mp4v",
+                     width=small[0], height=small[1], samples=RENDER_FRAMES,
+                     sync_samples=RENDER_FRAMES, fps=float(RENDER_FPS),
+                     mdat_filled=True) or frame_enc.calls != RENDER_FRAMES:
+        raise SystemExit(f"llff render: the mp4 is wrong: {video}")
+    spec = runner.model.pos_encoder.spec
+    pos, g = capture_steps(runner, hash_nbr.HashEncode, LLFF_STEPS, 2)
+    del runner
+    hs["llff"] = check_hash(torch, hash_nbr, "llff field aabb 64", spec, pos,
+                            g)
+    hs["llff"]["n"] = pos.shape[0]
+    del pos, g
+    out["llff"] = dict(res, minify_decode_s=dec.seconds, bar=bar,
+                       video=video, render_s_per_frame=per_frame,
+                       frame_encode_s=frame_enc.seconds / RENDER_FRAMES)
+    secs, peak = phase_end(torch, "real-capture", t_phase)
+    out.update(phase_s=secs, peak_mib=peak)
+    return out, hs
+
+
 def build_kernels(torch, cuda_lib):
-    """Phase 2: one nvcc per source and the g++ build of the host-side
-    marching tetrahedra, started together."""
+    """Phase 2: one nvcc per source and the g++ builds of the host-side
+    cores (marching tetrahedra, the JPEG codec, the MPEG-4 encoder),
+    started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from jnerf_tpu_torch import native
@@ -2216,16 +2511,17 @@ def build_kernels(torch, cuda_lib):
     t0 = time.perf_counter()
     names = ("hash_encode", "fused_mlp")
     preludes = (cuda_lib.hash_prelude(), "")
-    with ThreadPoolExecutor(len(names) + 1) as pool:
-        host = pool.submit(native.build)
+    hosts = ("marching_tets", "jpeg", "mpeg4")
+    with ThreadPoolExecutor(len(names) + len(hosts)) as pool:
+        host = [pool.submit(native.build, h) for h in hosts]
         libs = list(pool.map(cuda_lib.build, names, preludes))
-        host_lib = host.result()
+        host_libs = [h.result() for h in host]
     cuda_lib.hash_encode_lib()
     cuda_lib.fused_mlp_lib()
     native.marching_lib()
     print(f"built {', '.join(lib.name for lib in libs)} and "
-          f"{os.path.basename(host_lib)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f"{', '.join(os.path.basename(h) for h in host_libs)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling",
@@ -2331,10 +2627,10 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-17 (the CLI, the xor kernels, the probe refresh, the mesh
+    """Phases 8-18 (the CLI, the xor kernels, the probe refresh, the mesh
     tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF,
-    Recursive-NeRF and data parallelism) in ``tmp``; returns the kernels
-    line."""
+    Recursive-NeRF, data parallelism and the real-capture configs) in
+    ``tmp``; returns the kernels line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -2368,11 +2664,26 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     par = run_parallel(torch)
     rank_launches = {k: [{"refresh": r["refresh"][k], "step": r["step"][k]}
                          for r in par["launches"]] for k in ("F", "B")}
+    fwd_keys = ("ms", "plain_ms", "bound_ms", "f32_ms")
+    cap, cap_hs = run_captures(torch, run_net, hash_nbr, counters, tmp)
+    capture_launches = {k: {f"{name} {task}": cap[name][task]["launches"][k]
+                            for name, tasks in (("fox", ("train", "test")),
+                                                ("llff", ("train", "test",
+                                                          "render")))
+                            for task in tasks} for k in ("F", "B")}
+    cap_rows = {k: {f"{name} field: two steps' {cap_hs[name]['n']} kept "
+                    f"samples, f2l16 aabb {aabb} "
+                    f"({n_ent} entries)": {m: cap_hs[name][k][m]
+                                           for m in keys}
+                    for name, aabb, n_ent in (("fox", 4, FOX_N_ENTRIES),
+                                              ("llff", 64, LLFF_N_ENTRIES))}
+                for k, keys in (("fwd", fwd_keys),
+                                ("bwd", ("ms", "plain_ms", "bound_ms",
+                                         "library_ms")))}
 
     head = "step f8l4@2^19"
     others = ("uniform f8l4@2^19", "uniform f2l16@2^18", "step f2l16@2^18")
     fwd_others = others + ("render chunk f8l4@2^19", "render chunk f2l16@2^18")
-    fwd_keys = ("ms", "plain_ms", "bound_ms", "f32_ms")
     src = "jnerf_tpu_torch/csrc/fused_mlp.cu"
     no_lib = "no single PyTorch call computes it"
     kernels = [
@@ -2382,9 +2693,12 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             hs[head]["fwd"],
             f"one headline step's {N_SAMPLES} kept samples, f8l4@2^19, bf16 "
             "output (the path's dtype; f32_ms: the f32 output)",
-            max_abs_err=max(h["fwd"]["err"] for h in hs.values()),
+            max_abs_err=max(h["fwd"]["err"] for h in (*hs.values(),
+                                                       *cap_hs.values())),
             library=no_lib + " (a gather of bf16-rounded rows, each "
             "product rounded to bf16, summed in f32)",
+            capture_path_launches=capture_launches["F"],
+            **cap_rows["fwd"],
             fused_path_launches=fused_launches["hash_fwd"],
             quality_path_launches=quality_launches["fwd"],
             cli_path_launches=cli["linear_rows"]["train_launches"]["F"],
@@ -2402,9 +2716,12 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             f"one headline step's {N_SAMPLES} kept samples, f8l4@2^19",
             also_replaces=["jnerf_tpu/ops/hash_nbr.py:431",
                            "jnerf_tpu/ops/hash_nbr.py:513"],
-            max_abs_err=max(hs[k]["bwd"]["err"] for k in (head,) + others),
+            max_abs_err=max([hs[k]["bwd"]["err"] for k in (head,) + others]
+                            + [h["bwd"]["err"] for h in cap_hs.values()]),
             library="index_put_(accumulate=True) of the precomputed weighted "
             "contributions: the scatter alone",
+            capture_path_launches=capture_launches["B"],
+            **cap_rows["bwd"],
             fused_path_launches=fused_launches["hash_bwd"],
             quality_path_launches=quality_launches["bwd"],
             cli_path_launches=cli["linear_rows"]["train_launches"]["B"],

@@ -3,12 +3,13 @@
 The helpers are copies of `jnerf_tpu/dataset/dataset_util.py` (importing
 that module would import the JAX package).  ``read_image`` and
 ``write_image`` keep its signatures and semantics, but read and write PNG
-with the standard library (zlib, struct) and numpy, so that a machine
-without imageio, PIL or cv2 trains and renders: 8-bit grey, grey+alpha, RGB
-and RGBA, non-interlaced, every filter type.  Other PNGs (16-bit, palette,
-interlaced) raise.  ``.bin`` is raw fp16 RGBA behind an (h, w) int32
-header, as in the JAX package.  Other extensions (JPEG) go to imageio,
-imported when such a file is met.
+with the standard library (zlib, struct) and numpy, and JPEG with the
+port's C++ codec (`dataset/jpeg.py`: the same pixels as libjpeg-turbo), so
+that a machine without imageio, PIL or cv2 trains and renders.  PNG: 8-bit
+grey, grey+alpha, RGB and RGBA, non-interlaced, every filter type; other
+PNGs (16-bit, palette, interlaced) raise.  ``.bin`` is raw fp16 RGBA
+behind an (h, w) int32 header, as in the JAX package.  Other extensions go
+to imageio, imported when such a file is met.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import zlib
 
 import numpy as np
 
+from jnerf_tpu_torch.dataset.jpeg import decode_jpeg, encode_jpeg
+
 # Poses are scaled by this factor (and offset by 0.5) into NGP's unit cube.
 NERF_SCALE = 0.33
 
@@ -27,6 +30,7 @@ _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels, for the 8-bit types this codec reads.
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _PNG_COLOR_TYPE = {c: t for t, c in _PNG_CHANNELS.items()}
+_JPEG_EXTS = (".jpg", ".jpeg")
 
 
 def fov_to_focal_length(resolution: int, degrees: float) -> float:
@@ -188,10 +192,15 @@ def encode_png(img: np.ndarray, filter_type: int = 2) -> bytes:
 # ------------------------------------------------------------ image files
 def read_image_u8(path: str) -> np.ndarray:
     """An 8-bit image file as uint8 [H, W] or [H, W, C]: PNG by this
-    module's decoder, other formats by imageio (imported here)."""
-    if os.path.splitext(path)[1].lower() == ".png":
+    module's decoder, JPEG by the port's codec, other formats by imageio
+    (imported here)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
         with open(path, "rb") as f:
             return decode_png(f.read())
+    if ext in _JPEG_EXTS:
+        with open(path, "rb") as f:
+            return decode_jpeg(f.read(), path)
     import imageio.v2 as imageio
 
     return np.asarray(imageio.imread(path))
@@ -220,7 +229,8 @@ def read_image(path: str) -> np.ndarray:
 
 def write_image(path: str, img: np.ndarray, quality: int = 95) -> None:
     """Write a float image in [0, 1] ([H, W] or [H, W, C]): PNG by this
-    module's encoder, ``.bin`` as fp16 RGBA, JPEG (``quality``) and other
+    module's encoder, ``.bin`` as fp16 RGBA, JPEG (``quality``; the first
+    three channels, as the JAX package keeps) by the port's codec, other
     formats by imageio (imported here)."""
     img = np.asarray(img)
     ext = os.path.splitext(path)[1].lower()
@@ -237,10 +247,10 @@ def write_image(path: str, img: np.ndarray, quality: int = 95) -> None:
         with open(path, "wb") as f:
             f.write(encode_png(out))
         return
+    if ext in _JPEG_EXTS:
+        with open(path, "wb") as f:
+            f.write(encode_jpeg(out[..., :3], quality))
+        return
     import imageio.v2 as imageio
 
-    kwargs = {}
-    if ext in (".jpg", ".jpeg"):
-        out = out[..., :3]
-        kwargs["quality"] = quality
-    imageio.imwrite(path, out, **kwargs)
+    imageio.imwrite(path, out)

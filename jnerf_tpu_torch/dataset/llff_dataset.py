@@ -5,9 +5,9 @@ bound rescale and recentre, and the ``llffhold`` splits persisted in
 ``split.json``.  ``_minify`` writes ``images_{factor}/`` as PNGs with no
 cv2: an area mean over factor x factor blocks that rounds as
 ``cv2.resize(..., INTER_AREA)`` does on 8-bit data (`_area_downsize`).
-An existing ``images_{factor}/`` is read as it is, so a capture minified
-on another machine loads on one without imageio or cv2; JPEG sources need
-imageio (`dataset_util.read_image_u8`).
+An existing ``images_{factor}/`` is read as it is; JPEG sources decode
+through the port's codec (`dataset_util.read_image_u8`), so a capture
+minifies on a machine without imageio or cv2 too.
 """
 
 from __future__ import annotations

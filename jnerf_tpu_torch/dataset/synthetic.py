@@ -8,7 +8,11 @@ the caller's device, with every sum written out in the order numpy takes
 it, so that on the CPU the plain scene's images equal the JAX package's bit
 for bit and the hard scene's within float64 rounding.
 ``make_synthetic_scene`` writes the plain scene to disk in blender format
-(jsons and PNGs), as the JAX package's writer does.
+(jsons and PNGs), as the JAX package's writer does; ``make_fox_capture``
+and ``make_llff_capture`` write it, inside a room with patterned walls,
+as the real captures' layouts hold them (opaque JPEG photographs, with
+the fox's COLMAP json keys or LLFF's ``poses_bounds.npy``), for the
+real-capture configs.
 ``make_synthetic_neus_scene`` writes the NeuS test object (two spheres
 inside the unit sphere) in DTU format, traced in numpy as the JAX package
 traces it; ``neus_sdf`` is its analytic SDF.
@@ -254,6 +258,127 @@ def background_psnr(scene_dir: str, n_test: int) -> float:
         mse = float(((img[..., :3] * img[..., 3:]) ** 2).mean())
         out.append(-10.0 * np.log10(mse))
     return float(np.mean(out))
+
+
+# ----------------------------------------------------------- real captures
+def _photo(pose, H, W, camera_angle_x, device, room):
+    """The spheres in a room, float [H, W, 3] on the host: the room is a
+    sphere of radius ``room`` around them, seen from inside, whose wall
+    carries a smooth colour pattern, so that the photographs are opaque
+    and every view sees geometry at a finite depth."""
+    rgba = render_analytic(pose, H, W, camera_angle_x, device=device)
+    f64 = torch.float64
+    dev = rgba.device
+    focal = float(0.5 * W / np.tan(0.5 * camera_angle_x))
+    xs = (torch.arange(W, dtype=f64, device=dev) + 0.5 - W / 2) / focal
+    ys = -(torch.arange(H, dtype=f64, device=dev) + 0.5 - H / 2) / focal
+    dirs = torch.stack([xs.expand(H, W), ys[:, None].expand(H, W),
+                        torch.full((H, W), -1.0, dtype=f64, device=dev)], -1)
+    dirs = dirs @ torch.as_tensor(np.asarray(pose, np.float64)[:, :3].T,
+                                  device=dev)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    eye = torch.as_tensor(np.asarray(pose, np.float64)[:, 3], device=dev)
+    # The far root of |eye + t d| = R from inside the room.
+    b = dirs @ eye
+    t = -b + torch.sqrt(b * b - (eye @ eye - room ** 2))
+    p = eye + t[..., None] * dirs
+    wall = torch.stack([
+        0.5 + 0.22 * torch.sin(0.9 * p[..., 0] + 0.3) * torch.cos(0.7 * p[..., 1]),
+        0.45 + 0.2 * torch.sin(0.8 * p[..., 1] - 0.5) * torch.cos(0.6 * p[..., 2]),
+        0.4 + 0.2 * torch.sin(0.7 * p[..., 2] + 1.1) * torch.cos(0.9 * p[..., 0]),
+    ], -1)
+    rgb = rgba[..., :3] * rgba[..., 3:] + wall.float() * (1 - rgba[..., 3:])
+    return rgb.cpu().numpy()
+
+
+def make_fox_capture(out_dir: str, n_train: int = 50, n_test: int = 2,
+                     H: int = 1080, W: int = 1920, seed: int = 0,
+                     device=None, radius: float = 2.0, room: float = 3.0,
+                     camera_angle_x: float = 1.2) -> str:
+    """Write the plain scene, in a room of radius ``room``, as a capture in
+    the fox's layout: opaque photographs ``images/0001.jpg``, ... (JPEG at
+    quality 95, through `dataset_util.write_image`), and
+    ``transforms_train.json`` / ``transforms_test.json`` with the keys of
+    a COLMAP export: ``fl_x``, ``fl_y``, ``cx``, ``cy``, ``w``, ``h``,
+    distortion ``k1``, ``k2``, ``p1``, ``p2`` (nonzero; the loaders carry
+    them and do not apply them) and ``aabb_scale`` 4.  The cameras orbit
+    ``radius`` out with the jitter of make_synthetic_scene; by default
+    close to the spheres with a wide field of view, as the fox's are (its
+    fl_x of ~1375 px at 1920 is ~1.2 rad): from 4 units away the trainer's
+    march, at most 256 samples a ray in cone-angle steps, reaches no
+    surface through the initial grid, and the field overfits the training
+    views (`tools/capture_probe.py`, PERF.md §6).  Returns out_dir."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+    focal = float(0.5 * W / np.tan(0.5 * camera_angle_x))
+    head = {"fl_x": focal, "fl_y": focal, "cx": W / 2, "cy": H / 2, "w": W,
+            "h": H, "k1": 0.0125, "k2": -0.0041, "p1": 0.0007, "p2": -0.0003,
+            "aabb_scale": 4}
+    number = 0
+    for split, n, offset in (("train", n_train, 0.0), ("test", n_test, 0.11)):
+        frames = []
+        for i in range(n):
+            theta = 2 * np.pi * (i / n + offset) + rng.uniform(-0.05, 0.05)
+            phi = np.radians(rng.uniform(-25, 55))
+            eye = radius * np.array([np.cos(theta) * np.cos(phi),
+                                     np.sin(theta) * np.cos(phi), np.sin(phi)])
+            pose = _look_at_pose(eye)
+            number += 1
+            rel = f"images/{number:04d}.jpg"
+            write_image(os.path.join(out_dir, rel),
+                        _photo(pose, H, W, camera_angle_x, device, room),
+                        quality=95)
+            pose4 = np.concatenate([pose, [[0, 0, 0, 1]]], axis=0)
+            frames.append({"file_path": rel, "transform_matrix": pose4.tolist()})
+        with open(os.path.join(out_dir, f"transforms_{split}.json"), "w") as f:
+            json.dump(dict(head, frames=frames), f)
+    return out_dir
+
+
+def make_llff_capture(out_dir: str, n_views: int = 20, H: int = 3024,
+                      W: int = 4032, seed: int = 0, device=None,
+                      layout: str = "ellipse") -> str:
+    """Write the plain scene, in a room of radius 5.5, as a
+    forward-facing capture in the LLFF layout: ``images/IMG_0000.JPG``,
+    ... (JPEG at quality 95; no ``images_{factor}/``, so the loader
+    minifies the JPEGs) and ``poses_bounds.npy`` ([down, right, back]
+    rotation, position, and [H, W, focal] per view, then the near and far
+    scene depths, by which the loader scales the poses).  The cameras sit
+    4 units in front of the spheres, all looking at the origin with a 1.1
+    rad field of view: on an ellipse (1.2 x 0.8 units), in order around
+    it as a hand-held sweep takes them, so that every llffhold-th view
+    lies between two training views; or, ``layout="grid"``, row by row on
+    a 1.2 x 0.8 grid, whose held-out views fall on its corners and edges
+    (`tools/capture_probe.py`).  The bounds are the scene's own depths
+    from there (the big sphere's front at ~3.4, the wall behind at ~9.5),
+    as a capture's are.  Returns out_dir."""
+    if layout not in ("ellipse", "grid"):
+        raise ValueError(f"layout {layout!r}: 'ellipse' or 'grid'")
+    distance, room, camera_angle_x, bounds = 4.0, 5.5, 1.1, (3.3, 9.5)
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+    focal = float(0.5 * W / np.tan(0.5 * camera_angle_x))
+    cols = int(np.ceil(np.sqrt(n_views)))
+    rows = []
+    for i in range(n_views):
+        if layout == "ellipse":
+            theta = 2 * np.pi * i / n_views
+            u, v = 0.5 * np.cos(theta), 0.5 * np.sin(theta)
+        else:
+            u = (i % cols) / max(cols - 1, 1) - 0.5
+            v = (i // cols) / max((n_views - 1) // cols, 1) - 0.5
+        eye = np.array([distance, 1.2 * u, 0.8 * v]) \
+            + rng.uniform(-0.03, 0.03, 3)
+        pose = _look_at_pose(eye)  # columns: right, up, back, eye
+        write_image(os.path.join(out_dir, "images", f"IMG_{i:04d}.JPG"),
+                    _photo(pose, H, W, camera_angle_x, device, room),
+                    quality=95)
+        llff = np.stack([-pose[:, 1], pose[:, 0], pose[:, 2], pose[:, 3],
+                         np.array([H, W, focal], np.float32)], axis=1)
+        rows.append(np.concatenate([llff.reshape(-1), bounds]))
+    np.save(os.path.join(out_dir, "poses_bounds.npy"),
+            np.asarray(rows, np.float64))
+    return out_dir
 
 
 # --------------------------------------------------------------------- NeuS

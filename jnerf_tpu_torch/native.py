@@ -1,12 +1,14 @@
-"""The port's host-side C++ core: marching tetrahedra, loaded with ctypes.
+"""The port's host-side C++ cores, loaded with ctypes: marching
+tetrahedra (the counterpart of `jnerf_tpu/native.py`), the JPEG codec
+(`dataset/jpeg.py`) and the MPEG-4 video encoder (`utils/mp4.py`).
 
-Counterpart of `jnerf_tpu/native.py`.  ``csrc/marching_tets.cpp`` builds
-with ``g++ -O3 -shared -fPIC`` at first use into ``build/jnerf_tpu_torch/``
-under the checkout (git-ignored), named by a hash of the source and the
-flags, as `ops/cuda_lib.py` builds the CUDA kernels: an edited source
-rebuilds and an unchanged one loads at once.  A missing compiler or a
-failed build raises; there is no fallback (callers that want the numpy
-path ask for it with ``use_native=False``).
+Each ``csrc/<name>.cpp`` builds with ``g++ -O3 -shared -fPIC`` at first
+use into ``build/jnerf_tpu_torch/`` under the checkout (git-ignored),
+named by a hash of the source and the flags, as `ops/cuda_lib.py` builds
+the CUDA kernels: an edited source rebuilds and an unchanged one loads at
+once.  A missing compiler or a failed build raises; there is no fallback
+(callers that want the numpy marching path ask for it with
+``use_native=False``).
 """
 
 from __future__ import annotations
@@ -26,19 +28,18 @@ from jnerf_tpu_torch.ops.cuda_lib import BUILD_DIR, CSRC_DIR
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 
 
-def build() -> str:
-    """Compile ``csrc/marching_tets.cpp`` unless a library of the same
-    source and flags exists; returns the library path."""
-    src = CSRC_DIR / "marching_tets.cpp"
+def build(name: str = "marching_tets") -> str:
+    """Compile ``csrc/<name>.cpp`` unless a library of the same source and
+    flags exists; returns the library path."""
+    src = CSRC_DIR / f"{name}.cpp"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmarching_tets_{digest}.so"
+    lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return str(lib)
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the marching-tetrahedra core cannot "
-                           "be built (use_native=False selects numpy)")
+        raise RuntimeError(f"g++ not found: the {name} core cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
     proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],

@@ -18,8 +18,9 @@ JAX package's one key per image), from the runner's generator unless
 given.  Images are written by ``save_img`` through the port's own PNG
 encoder (`dataset/dataset_util.py`), so ``train``, ``val_img`` and
 ``test`` need no imaging library.  ``render`` writes the spherical demo
-path as an mp4 with cv2, imported when it is called, as in the JAX
-package.
+path as an mp4 (MPEG-4 Part 2, the ``mp4v`` codec the JAX package's cv2
+writer uses) through the port's own writer (`utils/mp4.py`), so it needs
+no cv2 either.
 
 Checkpoints (``save_ckpt``, ``load_ckpt``, ``cfg.load_ckpt``, the
 ``params.pkl`` that ``train`` writes before ``test``) keep the JAX
@@ -70,6 +71,7 @@ from jnerf_tpu_torch.utils.convert import (
     jax_params_to_state_dict,
     state_dict_to_jax_params,
 )
+from jnerf_tpu_torch.utils.mp4 import Mp4Writer
 from jnerf_tpu_torch.utils.registry import (
     DATASETS,
     LOSSES,
@@ -519,24 +521,20 @@ class Runner:
         """Render the spherical demo path (`dataset/camera_path.py`) into
         an mp4 at 28 fps (``<save_path>/demo.mp4`` unless given), after
         loading ``ckpt_path`` if ``load_ckpt``; returns the file's path.
-        Imports cv2, which the card's machine lacks (ROADMAP)."""
+        The file shows the rendered colours, as the JAX package's does."""
         if load_ckpt:
             assert os.path.exists(self.ckpt_path), self.ckpt_path
             self.load_ckpt(self.ckpt_path)
         if not save_path:
             save_path = os.path.join(self.save_path, "demo.mp4")
         assert save_path.endswith(".mp4")
-        import cv2
-
         os.makedirs(os.path.dirname(os.path.abspath(save_path)), exist_ok=True)
         fps = 28
-        writer = cv2.VideoWriter(
-            save_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (self.W, self.H)
-        )
+        writer = Mp4Writer(save_path, self.W, self.H, fps)
         for pose in camera_path.path_spherical():
             img = self.render_img_with_pose(pose)
             frame = (img * 255 + 0.5).clip(0, 255).astype("uint8")
-            writer.write(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            writer.write(frame)
         writer.release()
         return save_path
 

@@ -234,7 +234,9 @@ def test_neus_train_and_validate_mesh_on_cpu(tmp_path, clear_cfgs,
 
 def test_user_path_imports_no_jax_or_imaging_library(tmp_path):
     """Importing the CLI, loading a NerfDataset and Runner.train() through a
-    validation render, the checkpoint and the test set (PNGs written), the
+    validation render, the checkpoint and the test set (PNGs written),
+    Runner.render (the mp4, on three poses), writing a fox-layout JPEG
+    capture and loading it in NerfDataset, the
     NGP mesh tool on that checkpoint, NeuSRunner.train() through a
     validation image (PNGs, the JET depth) and a validation mesh,
     MipRunner.train() through a validation image and its checkpoint,
@@ -246,6 +248,7 @@ def test_user_path_imports_no_jax_or_imaging_library(tmp_path):
     them."""
     scene = str(tmp_path / "scene")
     cfg = write_blender_cfg(tmp_path, scene, steps=20)
+    fox = str(tmp_path / "fox")
     neus_scene = str(tmp_path / "scan")
     neus_cfg = write_neus_cfg(tmp_path / "neus", neus_scene, end_iter=3,
                               val_freq=3, val_mesh_freq=3)
@@ -270,7 +273,15 @@ make_synthetic_scene({scene!r}, n_train=3, n_val=1, n_test=1, H=8, W=8)
 assert NerfDataset({scene!r}, batch_size=8).n_images == 4
 init_cfg({cfg!r})
 Runner.val_freq, Runner.render_chunk_rays = 16, 64
-Runner(device="cpu").train()
+runner = Runner(device="cpu")
+runner.train()
+from jnerf_tpu_torch.dataset import camera_path
+camera_path.path_spherical = lambda: [camera_path.pose_spherical(a, -30, 4)
+                                      for a in (0, 120, 240)]
+runner.render(load_ckpt=False)
+from jnerf_tpu_torch.dataset.synthetic import make_fox_capture
+make_fox_capture({fox!r}, n_train=3, n_test=1, H=8, W=12)
+assert NerfDataset({fox!r}, batch_size=8).image_data.shape == (3 * 96, 4)
 from jnerf_tpu_torch.tools import extract_mesh
 extract_mesh.mesh(["--config-file", {cfg!r}, "--resolution", "16",
                    "--device", "cpu"])
@@ -299,6 +310,8 @@ print(sorted(new & {{"jax", "jaxlib", "jnerf_tpu", "optax", "yaml", "PIL",
     assert out.returncode == 0, out.stderr[-2000:]
     assert (tmp_path / "logs" / "lego" / "img16.png").is_file()
     assert (tmp_path / "logs" / "lego" / "mesh-color.ply").is_file()
+    assert (tmp_path / "logs" / "lego" / "demo.mp4").stat().st_size > 500
+    assert len(os.listdir(tmp_path / "fox" / "images")) == 4
     neus = tmp_path / "neus" / "exp"
     assert len(os.listdir(neus / "depths")) == 1
     assert (neus / "meshes_64" / "00000003.ply").is_file()

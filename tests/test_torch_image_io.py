@@ -135,14 +135,30 @@ def test_unsupported_pngs_raise(tmp_path):
         du.decode_png(bytes(interlaced))
 
 
-def test_jpeg_goes_to_imageio(tmp_path):
-    """Extensions other than PNG and .bin go to imageio, as in the JAX
-    package (a JPEG written with its quality reads back close)."""
-    img = np.full((16, 16, 3), 0.5, np.float32)
-    path = str(tmp_path / "c.jpg")
-    du.write_image(path, img)
-    np.testing.assert_allclose(du.read_image(path), jdu.read_image(path))
-    assert abs(float(du.read_image(path).mean()) - 0.5) < 0.02
+def test_jpeg_goes_to_imageio(tmp_path, monkeypatch):
+    """JPEG goes to the port's codec, and no longer to imageio (whose read
+    and write raise here): a .jpg and a .JPEG that the JAX package writes
+    read as its imageio reader reads them, bit for bit, and the port's
+    .jpg reads back close to what was written."""
+    y, x = np.mgrid[0:20, 0:28] / 28.0
+    img = np.stack([0.2 + 0.6 * x, 0.3 + 0.5 * y, 0.5 + 0.2 * x * y],
+                   -1).astype(np.float32)
+    paths = [str(tmp_path / "jax.jpg"), str(tmp_path / "jax.JPEG")]
+    for path in paths:
+        jdu.write_image(path, img, quality=80)
+    want = [jdu.read_image(path) for path in paths]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("imageio was called for a JPEG")
+
+    monkeypatch.setattr(imageio, "imread", refuse)
+    monkeypatch.setattr(imageio, "imwrite", refuse)
+    for path, ref in zip(paths, want):
+        np.testing.assert_array_equal(du.read_image(path), ref)
+    port = str(tmp_path / "port.jpg")
+    du.write_image(port, img)
+    err = np.abs(du.read_image(port) - img)
+    assert err.mean() < 0.01 and err.max() < 0.04
 
 
 def test_helper_math_matches_the_jax_package():
