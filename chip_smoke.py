@@ -139,9 +139,22 @@ on failure:
    must run in every training task, F alone in the test and render
    tasks, and both are checked against their twins and timed on two
    steps' kept samples of each trained field (3,391,728 and 3,596,432
-   table entries).
+   table entries);
+19. the port's measuring tools, each through its entry point's main in
+   this process (so the launch counters read what it ran):
+   `python -m jnerf_tpu_torch.bench` with the headline f8l4+m17f2k19 at
+   the bench's defaults (512^2 images, 512 warm-up and 256 timed steps)
+   and each of its other five configs at 32 + 32 steps, every line
+   without an error entry, its iters/s positive and kernels F and B
+   counted in every config; then `tools.bench_psnr` on the hard-scene
+   headline for TOOL_STEPS iterations after its 256 warm-up steps,
+   `tools.probe_tiers` on the headline, `tools.probe_demand` and
+   `tools.time_step` at shortened steps, each with finite positive
+   numbers and kernels F and B counted, and `tools.probe_cap19`, whose
+   kernel B must stand within kernel B's bound of phase 3 of the exact
+   adjoint at f8l4 and f4l8 with 2^19-entry levels.
 
-Each of phases 9-18 prints its time and its peak device memory.  To make
+Each of phases 9-19 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
 steps (was 1000) and phase 13 for 384 (was 512).
 
@@ -277,6 +290,15 @@ FOX_HW, LLFF_HW = (1080, 1920), (3024, 4032)
 CAPTURE_PSNR_OVER_MEAN = 10.0
 FOX_CASCADES, LLFF_CASCADES = 3, 7
 FOX_N_ENTRIES, LLFF_N_ENTRIES = 3_391_728, 3_596_432
+# Phase 19: the measuring tools.  The bench's headline runs at the bench's
+# defaults; its other configs, bench_psnr's iterations and the probes'
+# warm-up steps are cut (from 64 + 64 bench steps, 256 iterations and 20
+# steady steps, with which the phase took 60.5 s and the script 891.0 s on
+# an H100 whose host ran the hard-scene phase at 71 steps/s) so that the
+# script stays near 800 s.
+TOOL_BENCH_SHORT = ["--warmup", "32", "--steps", "32"]
+TOOL_STEPS = 128
+TOOL_STEADY_STEPS = 5
 RENDER_FRAMES, RENDER_FPS = 80, 28
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
@@ -2500,6 +2522,99 @@ def run_captures(torch, run_net, hash_nbr, counters, tmp):
     return out, hs
 
 
+def positive(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+
+def run_tools(torch, counters):
+    """Phase 19: the port's measuring tools through their entry points'
+    main in this process, each with the launch counters set to 0 just
+    before it and read just after.  Returns the launches, seconds and
+    results, and raises if a tool failed, printed a non-finite or
+    non-positive number, or ran without kernels F and B."""
+    import contextlib
+    import io
+
+    from jnerf_tpu_torch import bench
+    from jnerf_tpu_torch.tools import (
+        bench_psnr, probe_cap19, probe_demand, probe_tiers, time_step,
+    )
+
+    t_phase = phase_start(torch)
+    out = {"launches": {}, "seconds": {}}
+
+    def counted(name, fn):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        counts = out["launches"][name] = read_counts(counters)
+        if not (counts["F"] > 0 and counts["B"] > 0):
+            raise SystemExit(f"{name}: kernels F and B did not both run: "
+                             f"{counts}")
+        return res
+
+    for s in bench.SHAPES:
+        argv = ["--encoder", s] + ([] if s == bench.SHAPES[0]
+                                   else TOOL_BENCH_SHORT)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = counted(f"bench {s}", lambda: bench.main(argv))
+        text = buf.getvalue()
+        print(text, end="", flush=True)
+        line = json.loads(text.strip().splitlines()[-1])
+        if code != 0 or "errors" in line["extra"] \
+                or not positive(line["value"]) \
+                or min(line["extra"]["launches"].values()) <= 0:
+            raise SystemExit(f"bench {s} failed (exit {code}): {line}")
+        out[f"bench {s}"] = line
+    head = ["--encoder", "f8l4", "--compact", "--compact-m", "17",
+            "--march-factor", "2", "--fast-cap", "524288"]
+    q = counted("bench_psnr", lambda: bench_psnr.main(
+        head + ["--scene", "hard", "--iters", str(TOOL_STEPS)]))
+    if not (positive(q["value"]) and positive(q["extra"]["iters_per_s"])):
+        raise SystemExit(f"bench_psnr: {q}")
+    out["bench_psnr"] = q
+    tiers = counted("probe_tiers", lambda: probe_tiers.main(
+        ["--encoder", "f8l4", "--compact-m", "17", "--march-factor", "2",
+         "--fast-cap", "524288", "--steps", str(TOOL_STEPS)]))
+    names = ("full", "march", "model_f", "model_fb", "comp_fb", "optim")
+    if not all(positive(tiers[t]) and positive(tiers["event_ms"][t])
+               and positive(tiers["kernel_ms"][t]) for t in names):
+        raise SystemExit(f"probe_tiers: {tiers}")
+    out["probe_tiers"] = tiers
+    demand = counted("probe_demand", lambda: probe_demand.main(
+        ["--steps", str(TOOL_STEPS)]))
+    if not all(positive(w["measured_per_step"]) for w in demand["trace"]) \
+            or not all(positive(t["kept_samples"])
+                       and positive(t["slot_occupancy"])
+                       and math.isfinite(t["frac_samples_dropped"])
+                       for t in demand["trials"]):
+        raise SystemExit(f"probe_demand: {demand}")
+    steps = counted("time_step", lambda: time_step.main(
+        ["--steps", str(TOOL_STEADY_STEPS)]))
+    if not all(positive(host) and positive(dev)
+               for host, dev in steps.values()):
+        raise SystemExit(f"time_step: {steps}")
+    out["time_step"] = steps
+    reset_counts(counters)
+    cap19 = probe_cap19.main([])
+    for line in cap19:
+        if not (line["rel_err"] <= BWD_RTOL_OF_MAX
+                and line["fwd_err"] <= FWD_ATOL
+                and all(positive(v) for k, v in line.items()
+                        if k.endswith("_ms"))):
+            raise SystemExit(f"probe_cap19 at {line['geom']}: kernel B off "
+                             f"the exact adjoint by more than "
+                             f"{BWD_RTOL_OF_MAX:g} of its largest entry, or "
+                             f"kernel F by more than {FWD_ATOL:g}: {line}")
+    out["probe_cap19"] = cap19
+    secs, peak = phase_end(torch, "measuring tools", t_phase)
+    out.update(phase_s=secs, peak_mib=peak)
+    return out
+
+
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source and the g++ builds of the host-side
     cores (marching tetrahedra, the JPEG codec, the MPEG-4 encoder),
@@ -2627,10 +2742,10 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-18 (the CLI, the xor kernels, the probe refresh, the mesh
+    """Phases 8-19 (the CLI, the xor kernels, the probe refresh, the mesh
     tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF,
-    Recursive-NeRF, data parallelism and the real-capture configs) in
-    ``tmp``; returns the kernels line."""
+    Recursive-NeRF, data parallelism, the real-capture configs and the
+    measuring tools) in ``tmp``; returns the kernels line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -2666,6 +2781,9 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                          for r in par["launches"]] for k in ("F", "B")}
     fwd_keys = ("ms", "plain_ms", "bound_ms", "f32_ms")
     cap, cap_hs = run_captures(torch, run_net, hash_nbr, counters, tmp)
+    tools = run_tools(torch, counters)
+    tool_launches = {k: {name: c[k] for name, c in tools["launches"].items()}
+                     for k in ("F", "B")}
     capture_launches = {k: {f"{name} {task}": cap[name][task]["launches"][k]
                             for name, tasks in (("fox", ("train", "test")),
                                                 ("llff", ("train", "test",
@@ -2698,6 +2816,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             library=no_lib + " (a gather of bf16-rounded rows, each "
             "product rounded to bf16, summed in f32)",
             capture_path_launches=capture_launches["F"],
+            tools_path_launches=tool_launches["F"],
             **cap_rows["fwd"],
             fused_path_launches=fused_launches["hash_fwd"],
             quality_path_launches=quality_launches["fwd"],
@@ -2721,6 +2840,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             library="index_put_(accumulate=True) of the precomputed weighted "
             "contributions: the scatter alone",
             capture_path_launches=capture_launches["B"],
+            tools_path_launches=tool_launches["B"],
             **cap_rows["bwd"],
             fused_path_launches=fused_launches["hash_bwd"],
             quality_path_launches=quality_launches["bwd"],

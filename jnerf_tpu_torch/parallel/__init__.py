@@ -54,8 +54,9 @@ class Mesh:
 def make_mesh(n_devices=None, group=None, device=None) -> Mesh:
     """The mesh over an initialized process group (the default group
     unless given); ``n_devices``, if given, must be its size.  ``device``
-    defaults to the current CUDA device where CUDA is available, else the
-    CPU."""
+    defaults to the current CUDA device; without CUDA it raises unless
+    given ``device="cpu"``, so that a rank never falls back to the CPU in
+    place of a missing card."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: torch.distributed is not initialized")
     size = dist.get_world_size(group)
@@ -63,8 +64,10 @@ def make_mesh(n_devices=None, group=None, device=None) -> Mesh:
         raise ValueError(f"make_mesh({n_devices}): the process group has "
                          f"{size} ranks")
     if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: CUDA is not available (pass "
+                               "device='cpu' to run the ranks on the CPU)")
+        device = torch.device("cuda", torch.cuda.current_device())
     return Mesh(group, dist.get_rank(group), size, torch.device(device))
 
 

@@ -30,18 +30,7 @@ import sys
 import time
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[2]
-
-
-def _git_rev(root):
-    """Short git rev of the working tree, or None outside a checkout."""
-    try:
-        return subprocess.run(
-            ["git", "-C", str(root), "rev-parse", "--short", "HEAD"],
-            capture_output=True, text=True, timeout=10,
-        ).stdout.strip() or None
-    except (OSError, subprocess.SubprocessError):
-        return None
+from jnerf_tpu_torch.tools.tool_util import ENCODERS, REPO, git_rev
 
 
 def _card():
@@ -108,13 +97,10 @@ def main(argv=None):
 
     ssaa = args.ssaa or (2 if args.scene == "hard" else 1)
     n_val = args.n_val or (4 if args.scene == "hard" else 2)
-    enc = {"f4l8": dict(hash_levels=8, hash_features=4),
-           "f8l4": dict(hash_levels=4, hash_features=8),
-           "f2l16": {}}[args.encoder]
     cfg = ngp_synthetic_cfg(
         n_images=16, H=args.image_size, W=args.image_size,
         tot_train_steps=args.steps, scene=args.scene, ssaa=ssaa,
-        n_val=n_val, seed=args.seed, **enc)
+        n_val=n_val, seed=args.seed, **ENCODERS[args.encoder])
     if args.fast_cap:
         cfg.hashmap_fast_cap = args.fast_cap
     if args.compact:
@@ -179,7 +165,7 @@ def main(argv=None):
         "iters": args.steps,
         "encoder": args.encoder,
         "fast_cap": args.fast_cap or None,
-        "git_rev": _git_rev(REPO),
+        "git_rev": git_rev(REPO),
         "compact": ((f"m=2^{args.compact_m}" if args.compact_m
                      else "m=target") + f",f={args.march_factor}"
                     if args.compact else None),

@@ -28,7 +28,7 @@ import os
 import sys
 import time
 
-from jnerf_tpu_torch.tools.ceiling_run import _git_rev
+from jnerf_tpu_torch.tools.tool_util import ENCODERS, git_rev
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -73,9 +73,7 @@ def main(argv=None):
     config.init_cfg(os.path.join(REPO, "projects/ngp/configs/ngp_fox.py"))
     cfg = config.get_cfg()
     cfg.tot_train_steps = 1 << 30
-    enc = {"f4l8": dict(hash_levels=8, hash_features=4),
-           "f8l4": dict(hash_levels=4, hash_features=8),
-           "f2l16": {}}[args.encoder]
+    enc = ENCODERS[args.encoder]
     if enc:
         cfg.encoder.pos_encoder.update(
             n_levels=enc["hash_levels"],
@@ -176,7 +174,7 @@ def main(argv=None):
         "compact": ((f"m=2^{args.compact_m},f={args.march_factor}")
                     if args.compact_m else None),
         "dataset": "fox-real-capture (data/fox, 50 train / 2 test)",
-        "git_rev": _git_rev(REPO),
+        "git_rev": git_rev(REPO),
         "elapsed_s": round(time.perf_counter() - t0, 1),
         "backend": dev.type,
     })

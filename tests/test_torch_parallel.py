@@ -363,3 +363,23 @@ def test_runner_mesh_sets_the_samplers(fresh_cfg):
         assert runner.sampler.mesh is None
     finally:
         get_cfg().clear()
+
+
+def test_make_mesh_refuses_a_missing_card(tmp_path):
+    """Over a one-rank gloo group in this process, make_mesh takes the CPU
+    only when given device="cpu": with no device and no card it raises
+    rather than putting the rank on the CPU."""
+    import torch.distributed as dist
+
+    from jnerf_tpu_torch.parallel import make_mesh
+
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device="cpu")
+        assert (mesh.rank, mesh.size, mesh.device) == (0, 1, CPU)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make_mesh(1)
+    finally:
+        dist.destroy_process_group()

@@ -106,11 +106,11 @@ def test_runner_refuses_missing_cuda(both_cfgs):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and its quality tool, training two steps (fused
-    MLP option on), rendering a pose of the demo path and building a tiny
-    hard-scene dataset pull in none of JAX, the JAX package, optax, yaml,
-    PIL, cv2 or imageio (checked in a fresh interpreter, beyond what torch
-    itself imports)."""
+    """Importing the port, its quality tool, its bench and its measuring
+    tools, training two steps (fused MLP option on), rendering a pose of
+    the demo path and building a tiny hard-scene dataset pull in none of
+    JAX, the JAX package, optax, yaml, PIL, cv2 or imageio (checked in a
+    fresh interpreter, beyond what torch itself imports)."""
     code = """
 import sys
 import numpy, torch
@@ -129,6 +129,10 @@ r.train_range(0, 2)
 r.render_chunk_rays = 128
 assert r.render_img_with_pose(camera_path.path_spherical(2)[0]).shape == (16, 16, 3)
 import jnerf_tpu_torch.tools.bf16_rays_probe, jnerf_tpu_torch.tools.ceiling_run
+import jnerf_tpu_torch.bench
+from jnerf_tpu_torch.tools import (
+    ab_hash_quality, bench_psnr, probe_cap19, probe_compact, probe_demand,
+    probe_tiers, time_step, tiny_ceiling_svox2, tool_util)
 from jnerf_tpu_torch.dataset import SyntheticSpheresDataset
 ds = SyntheticSpheresDataset(n_images=2, H=8, W=8, scene="hard", ssaa=2)
 assert ds.image_data.shape == (2 * 8 * 8, 4)

@@ -307,3 +307,46 @@ def write_svox2_cfg(tmp_path, scene, **extra):
         seed = 0
     """) + lines)
     return str(path)
+
+
+# ------------------------------------------------- the repo's measuring tools
+REPO = Path(__file__).resolve().parents[1]
+
+
+def jax_tool_dict_keys(rel, marker):
+    """The string keys of the first dict literal (breadth first) in the
+    JAX tool ``rel`` (a path from the repository's root) that has the key
+    ``marker``: the keys of a line the tool prints, read from its source
+    so that the tool need not run."""
+    import ast
+
+    for node in ast.walk(ast.parse((REPO / rel).read_text())):
+        if isinstance(node, ast.Dict):
+            keys = {k.value for k in node.keys if isinstance(k, ast.Constant)}
+            if marker in keys:
+                return keys
+    raise AssertionError(f"no dict with {marker!r} in {rel}")
+
+
+def shrink_bench_cfg(monkeypatch):
+    """Make every config the tools build through
+    ``bench_cfg.ngp_synthetic_cfg`` tiny (4 images of 16^2, 256 rays, a
+    32^3 grid, 2^13-entry tables), so that they train on the CPU in
+    seconds; the tools' own overrides (variants, compaction, hash shapes)
+    still apply."""
+    from jnerf_tpu_torch.utils import bench_cfg
+
+    real = bench_cfg.ngp_synthetic_cfg
+
+    def tiny(**kw):
+        kw.update(n_images=4, H=16, W=16, n_rays_per_batch=256,
+                  target_batch_size=1 << 12, grid_size=32, nerf_steps=128,
+                  log2_hashmap_size=13)
+        return real(**kw)
+
+    monkeypatch.setattr(bench_cfg, "ngp_synthetic_cfg", tiny)
+
+
+def files_under(*roots):
+    """Every path under the given directories."""
+    return {p for root in roots for p in Path(root).rglob("*")}
