@@ -150,9 +150,12 @@ on failure:
    headline for TOOL_STEPS iterations after its 256 warm-up steps,
    `tools.probe_tiers` on the headline, `tools.probe_demand` and
    `tools.time_step` at shortened steps, each with finite positive
-   numbers and kernels F and B counted, and `tools.probe_cap19`, whose
-   kernel B must stand within kernel B's bound of phase 3 of the exact
-   adjoint at f8l4 and f4l8 with 2^19-entry levels.
+   numbers and kernels F and B counted, and `tools.probe_cap19`, also
+   with kernels F and B counted, whose kernel B must stand within kernel
+   B's bound of phase 3 of the exact adjoint, and kernel F within kernel
+   F's of its twin, at f8l4 and f4l8 with 2^19-entry levels and at the
+   bench's other tables, f8l4 at 2^16 and f4l8 at 2^17 (f2l16 at 2^18 is
+   phase 3's).
 
 Each of phases 9-19 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
@@ -2565,8 +2568,7 @@ def run_tools(torch, counters):
         print(text, end="", flush=True)
         line = json.loads(text.strip().splitlines()[-1])
         if code != 0 or "errors" in line["extra"] \
-                or not positive(line["value"]) \
-                or min(line["extra"]["launches"].values()) <= 0:
+                or not positive(line["value"]):
             raise SystemExit(f"bench {s} failed (exit {code}): {line}")
         out[f"bench {s}"] = line
     head = ["--encoder", "f8l4", "--compact", "--compact-m", "17",
@@ -2598,15 +2600,14 @@ def run_tools(torch, counters):
                for host, dev in steps.values()):
         raise SystemExit(f"time_step: {steps}")
     out["time_step"] = steps
-    reset_counts(counters)
-    cap19 = probe_cap19.main([])
+    cap19 = counted("probe_cap19", lambda: probe_cap19.main([]))
     for line in cap19:
         if not (line["rel_err"] <= BWD_RTOL_OF_MAX
                 and line["fwd_err"] <= FWD_ATOL
                 and all(positive(v) for k, v in line.items()
                         if k.endswith("_ms"))):
-            raise SystemExit(f"probe_cap19 at {line['geom']}: kernel B off "
-                             f"the exact adjoint by more than "
+            raise SystemExit(f"probe_cap19 at {line['geom']}@{line['cap']}: "
+                             f"kernel B off the exact adjoint by more than "
                              f"{BWD_RTOL_OF_MAX:g} of its largest entry, or "
                              f"kernel F by more than {FWD_ATOL:g}: {line}")
     out["probe_cap19"] = cap19

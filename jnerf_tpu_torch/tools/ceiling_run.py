@@ -25,21 +25,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-from jnerf_tpu_torch.tools.tool_util import ENCODERS, REPO, git_rev
-
-
-def _card():
-    """{"name", "power_limit"} of the first card, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    name, limit = out.stdout.strip().splitlines()[0].rsplit(",", 1)
-    return {"name": name.strip(), "power_limit": limit.strip()}
+from jnerf_tpu_torch.tools.tool_util import ENCODERS, REPO, card, git_rev
 
 
 def parse_args(argv=None):
@@ -177,8 +167,8 @@ def main(argv=None):
         "setup_s": round(setup_s, 3),
         "train_steps_per_s": round(args.steps / train_s, 3),
         "elapsed_s": round(time.perf_counter() - t0, 1),
-        "backend": "cuda" if dev.type == "cuda" else "cpu",
-        "card": _card() if dev.type == "cuda" else None,
+        "backend": dev.type,
+        "card": card(dev),
         "ckpt": str(ckpt),
     }
     out_path.parent.mkdir(parents=True, exist_ok=True)

@@ -28,10 +28,7 @@ import os
 import sys
 import time
 
-from jnerf_tpu_torch.tools.tool_util import ENCODERS, git_rev
-
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+from jnerf_tpu_torch.tools.tool_util import ENCODERS, REPO, git_rev
 
 
 def parse_args(argv=None):

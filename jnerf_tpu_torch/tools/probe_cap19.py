@@ -4,7 +4,10 @@ of `tools/probe_cap19.py`.
     python3 -m jnerf_tpu_torch.tools.probe_cap19 [--cpu]
 
 At 2^19-entry hashed levels (the reference's table size) and 2^16
-uniform samples, for the f8l4 and f4l8 geometries, it holds kernel F to
+uniform samples, for the f8l4 and f4l8 geometries, and at the two other
+tables the bench trains (f8l4 at 2^16 and f4l8 at 2^17 entries, the
+hash encoder's default caps; f2l16 at 2^18 is `chip_smoke.py` phase 3's
+and phase 18's), it holds kernel F to
 its plain twin (max abs difference of the f32 outputs) and kernel B to
 the exact adjoint: the float64 sum of the same f32 contributions, each
 corner's entry and weight from the twin's own arithmetic, as
@@ -24,7 +27,10 @@ import json
 
 import torch
 
-GEOMETRIES = ((4, 8), (8, 4))  # (levels, features): f8l4, f4l8
+# (levels, features, hashed-level cap): f8l4 and f4l8 at the reference's
+# 2^19, then at the bench's default caps.
+GEOMETRIES = ((4, 8, 1 << 19), (8, 4, 1 << 19), (4, 8, 1 << 16),
+              (8, 4, 1 << 17))
 
 
 def exact_grad_table(hash_nbr, spec, pos, g):
@@ -109,8 +115,8 @@ def main(argv=None):
     device = device_for(args.cpu, "probe_cap19")
     on = card(device)
     out = []
-    for levels, feats in GEOMETRIES:
-        line = dict(run(levels, feats, device), card=on)
+    for levels, feats, cap in GEOMETRIES:
+        line = dict(run(levels, feats, device, cap=cap), card=on)
         out.append(line)
         print(json.dumps(line), flush=True)
     return out

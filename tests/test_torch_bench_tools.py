@@ -18,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import files_under, jax_tool_dict_keys, shrink_bench_cfg
+from torch_parity import (  # noqa: F401 (fixtures)
+    files_under, jax_tool_dict_keys, tiny_cfg, two_threads,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -41,25 +43,6 @@ def _list_with(rel, marker):
             if marker in vals:
                 return vals
     raise AssertionError(f"no list with {marker!r} in {rel}")
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """Two torch threads a test: the suite runs in several processes at
-    once, and eight spinning threads in each slow every one of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture
-def tiny_cfg(monkeypatch):
-    shrink_bench_cfg(monkeypatch)
-    yield
-    from jnerf_tpu_torch.utils.config import get_cfg
-
-    get_cfg().clear()
 
 
 # --------------------------------------------------------------- the bench

@@ -37,7 +37,7 @@ def test_two_eval_cpu_run(tmp_path, monkeypatch):
             "fast_cap", "git_rev", "compact", "scene", "use_pallas_mlp",
             "seed", "trajectory", "setup_s", "train_steps_per_s",
             "elapsed_s", "backend", "card", "ckpt"} == set(res)
-    assert res["backend"] == "cpu" and res["card"] is None
+    assert res["backend"] == "cpu" and res["card"] == "cpu"
     assert res["scene"] == "synthetic-hard-16-ssaa2"
     assert res["compact"] == "m=2^10,f=2" and res["seed"] == 7
     assert [t["iters"] for t in res["trajectory"]] == [16, 32]

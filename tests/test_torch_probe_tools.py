@@ -15,29 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import files_under, jax_tool_dict_keys, shrink_bench_cfg
+from torch_parity import (  # noqa: F401 (fixtures)
+    files_under, jax_tool_dict_keys, tiny_cfg, two_threads,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """Two torch threads a test: the suite runs in several processes at
-    once, and eight spinning threads in each slow every one of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture
-def tiny_cfg(monkeypatch):
-    shrink_bench_cfg(monkeypatch)
-    yield
-    from jnerf_tpu_torch.utils.config import get_cfg
-
-    get_cfg().clear()
 
 
 def test_ab_hash_quality_cpu(tiny_cfg, tmp_path, monkeypatch, capsys):
@@ -180,11 +163,50 @@ def test_probe_cap19_geometry_is_the_jax_tools(levels, feats):
     from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
     from jnerf_tpu_torch.tools import probe_cap19
 
-    assert (levels, feats) in probe_cap19.GEOMETRIES
+    assert (levels, feats, 1 << 19) in probe_cap19.GEOMETRIES
     kw = dict(n_levels=levels, n_features_per_level=feats,
               base_resolution=16, log2_hashmap_size=19,
               max_level_size=1 << 19)
     assert HashGridSpec(**kw).level_sizes == JaxSpec(**kw).level_sizes
+
+
+@pytest.mark.parametrize("shape", ["f8l4+m17f2k19", "f8l4+m17f2", "f8l4+m16f1",
+                                   "f4l8+m16f1", "f2l16+m16f1", "f2l16"])
+def test_probe_cap19_covers_the_bench_tables(shape):
+    """Each table the bench trains, built by the JAX package's and the
+    port's hash encoders from the bench's config, has the same level sizes
+    in both, and is one that `probe_cap19` checks, but f2l16 at 2^18,
+    which `chip_smoke.py` phase 3 checks."""
+    from jnerf_tpu.models.position_encoders.hash_encoder import (
+        HashEncoder as JaxEncoder,
+    )
+    from jnerf_tpu.utils.config import get_cfg as jax_cfg
+
+    from jnerf_tpu_torch import bench
+    from jnerf_tpu_torch.models.position_encoders.hash_encoder import (
+        HashEncoder,
+    )
+    from jnerf_tpu_torch.tools import probe_cap19
+    from jnerf_tpu_torch.tools.tool_util import ENCODERS
+    from jnerf_tpu_torch.utils.config import get_cfg
+
+    assert shape in bench.SHAPES
+    name, _, variant = shape.partition("+")
+    enc = ENCODERS[name]
+    kw = dict(n_levels=enc.get("hash_levels", 16),
+              n_features_per_level=enc.get("hash_features", 2), aabb_scale=1)
+    cap = bench.parse_variant(variant).get("hashmap_fast_cap")
+    specs = []
+    for cfg, encoder in ((get_cfg(), HashEncoder), (jax_cfg(), JaxEncoder)):
+        cfg.hashmap_fast_cap = cap
+        try:
+            specs.append(encoder(**kw).spec)
+        finally:
+            cfg.clear()
+    spec, jax_spec = specs
+    assert spec.level_sizes == jax_spec.level_sizes
+    geom = (spec.n_levels, spec.n_features_per_level, spec.max_level_size)
+    assert geom in probe_cap19.GEOMETRIES or geom == (16, 2, 1 << 18)
 
 
 def test_probe_cap19_cpu_small():

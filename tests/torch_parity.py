@@ -347,6 +347,28 @@ def shrink_bench_cfg(monkeypatch):
     monkeypatch.setattr(bench_cfg, "ngp_synthetic_cfg", tiny)
 
 
+@pytest.fixture(autouse=True)
+def two_threads():
+    """Two torch threads a test (autouse where imported): the suite runs
+    in several processes at once, and eight spinning threads in each slow
+    every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tiny_cfg(monkeypatch):
+    """``shrink_bench_cfg`` for one test, and the global config cleared
+    after it."""
+    shrink_bench_cfg(monkeypatch)
+    yield
+    from jnerf_tpu_torch.utils.config import get_cfg
+
+    get_cfg().clear()
+
+
 def files_under(*roots):
     """Every path under the given directories."""
     return {p for root in roots for p in Path(root).rglob("*")}
