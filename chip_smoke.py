@@ -7,8 +7,8 @@ nonzero, printing no result, without them.  Phases, each of which raises
 on failure:
 
 1. the card: its name and power limit (nvidia-smi);
-2. build the CUDA kernels from jnerf_tpu_torch/csrc (hash_encode.cu and
-   fused_mlp.cu) and the host-side C++ cores (marching tetrahedra, the
+2. build the CUDA kernels from jnerf_tpu_torch/csrc (hash_encode.cu,
+   fused_mlp.cu and envelope.cu) and the host-side C++ cores (marching tetrahedra, the
    JPEG codec, the MPEG-4 encoder), all in parallel, with ptxas' register
    and spill lines;
 3. each kernel against its plain PyTorch twin on the card at the main
@@ -155,9 +155,19 @@ on failure:
    B's bound of phase 3 of the exact adjoint, and kernel F within kernel
    F's of its twin, at f8l4 and f4l8 with 2^19-entry levels and at the
    bench's other tables, f8l4 at 2^16 and f4l8 at 2^17 (f2l16 at 2^18 is
-   phase 3's).
+   phase 3's);
+20. the archived TPU envelope probes' ports
+   (`jnerf_tpu_torch/tools/archive/`), each through its main in this
+   process with the envelope kernels' counters set to 0 just before and
+   read just after, at the archive's sizes (probe_final's sections 3-5:
+   its 1-2 GiB sections 1-2 are left to the chip runs that PERF.md names),
+   each required to launch its kernels (K1 row gather, K2 element gather,
+   K3 row scatter-add, K4 packed hash scatter); then each kernel held to
+   its twin at an archived shape (K1 and K2 bit for bit, K3 and K4 within
+   BWD_RTOL_OF_MAX of the f64 sum) and timed beside its twin and a
+   library call.
 
-Each of phases 9-19 prints its time and its peak device memory.  To make
+Each of phases 9-20 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
 steps (was 1000) and phase 13 for 384 (was 512).
 
@@ -2615,6 +2625,229 @@ def run_tools(torch, counters):
     out.update(phase_s=secs, peak_mib=peak)
     return out
 
+# Phase 20: the archived TPU envelope probes through their mains, at their
+# defaults but probe_final's sections 1-2 (1-2 GiB) and probe_round2's
+# card-shape sweep, which the chip runs of PERF.md make; then each envelope
+# kernel held to its twin once at an archived probe's shape.  The kernels
+# each probe must launch:
+ENVELOPE_PROBES = {
+    "probe_rmw": ([], ("K3",)), "probe_scatter": ([], ("K3",)),
+    "probe_scatter2": ([], ("K3",)), "probe_loop": ([], ("K1", "K3")),
+    "probe_final": (["3", "4", "5"], ("K3",)),
+    "probe_round2": ([], ("K1", "K2", "K3")), "probe_tpu": ([], ("K1", "K2")),
+    "probe_tpu2": ([], ("K1", "K2")), "probe_bwd_var": ([], ("K4",)),
+}
+ENVELOPE_SITES = {
+    "K1": ["tools/archive/probe_loop.py:52", "tools/archive/probe_round2.py:138",
+           "tools/archive/probe_round2.py:177",
+           "tools/archive/probe_tpu.py:72 (k_rows, k_onehot)",
+           "tools/archive/probe_tpu2.py:93 (k_rowtake)"],
+    "K2": ["tools/archive/probe_tpu.py:72 (k_flat, k_lane)",
+           "tools/archive/probe_tpu2.py:93 (k_tala0, k_tala1)",
+           "tools/archive/probe_round2.py:240"],
+    "K3": ["tools/archive/probe_rmw.py:74", "tools/archive/probe_scatter.py:72",
+           "tools/archive/probe_scatter2.py:55",
+           "tools/archive/probe_loop.py:100", "tools/archive/probe_final.py:77",
+           "tools/archive/probe_round2.py:212"],
+    "K4": ["tools/archive/probe_bwd_var.py:101"],
+}
+
+
+def check_envelope(torch, envelope, common):
+    """Each envelope kernel against its twin at an archived probe's shape:
+    K1 and K2 bit for bit, K3 and K4 within BWD_RTOL_OF_MAX of the largest
+    entry of the f64 sum of the same f32 contributions; kernel, twin and
+    library call timed plain / kernel / kernel / plain.  Returns the
+    kernels' stats."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    out = {}
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def stats(key, name, fn, plain, lib, nbytes, err):
+        from jnerf_tpu_torch.tools.tool_util import kernel_time
+
+        ms, plain_ms, four = time_pair(fn, plain)
+        lib_ms = (cuda_ms(lib) + cuda_ms(lib)) / 2
+        # The kernels' own time (the profiler's sum; K3 and K4 include the
+        # zeroing of their output), apart from the wrapper's host time.
+        dev_ms, _ = kernel_time(fn, 20, dev)
+        out[key] = dict(work(nbytes, 0, F32_FLOP_PER_S), ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, err=err,
+                        shape=name, device_ms=dev_ms)
+        print(f"time {key} [{name}]: kernel {ms:.4f} ms ({four[0]:.4f}, "
+              f"{four[1]:.4f}; device {dev_ms:.4f}), plain {plain_ms:.4f}, "
+              f"library {lib_ms:.4f}, bound {out[key]['bound_ms']:.4f} ms "
+              f"({nbytes} B)", flush=True)
+
+    def equal(name, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"{name}: the kernel differs from its twin")
+        print(f"{name}: equal to its twin", flush=True)
+
+    # K1: probe_loop's gather, N = 2^20 of a [65536, 128] f32 table; with w
+    # and with lane sums at probe_round2's / probe_tpu's [4096, 128].
+    tbl = torch.randn((65536, 128), generator=gen, device=dev)
+    idx = tensor(common.uniform_idx(1 << 20, 65536))
+    equal("K1 [65536 x 512 B, N=2^20]", envelope.row_gather(tbl, idx),
+          envelope.row_gather_plain(tbl, idx))
+    small = tbl[:4096].contiguous()
+    i2 = tensor(common.uniform_idx(1 << 20, 4096, seed=1))
+    w = torch.randn((1 << 20, 128), generator=gen, device=dev)
+    equal("K1 gather*w [4096 x 512 B]", envelope.row_gather(small, i2, w),
+          envelope.row_gather_plain(small, i2, w))
+    i3 = i2[:32768].contiguous()
+    equal("K1 lane sums [4096 x 512 B, B=32768]",
+          envelope.row_gather(small, i3, lane_sum=True),
+          envelope.row_gather_plain(small, i3, lane_sum=True))
+    del w, i2, i3, small
+    stats("K1", "probe_loop: N=2^20 rows of a [65536, 128] f32 table",
+          lambda: envelope.row_gather(tbl, idx),
+          lambda: envelope.row_gather_plain(tbl, idx),
+          lambda: tbl.index_select(0, idx),
+          common.gather_bytes(1 << 20, 512, common.distinct(idx)), 0.0)
+    del tbl, idx
+
+    # K2: probe_round2's lane gather [8192, 128] (timed); flat and axis 0
+    # at probe_tpu's and probe_tpu2's shapes.
+    t4 = torch.randn((8192, 128), generator=gen, device=dev)
+    i4 = tensor(common.uniform_idx(1 << 20, 128).reshape(8192, 128))
+    equal("K2 axis1 [8192, 128]", envelope.elem_gather(t4, i4, "axis1"),
+          envelope.elem_gather_plain(t4, i4, "axis1"))
+    tp = t4[:4096].contiguous()
+    fi = tensor(common.uniform_idx(8 * 32768, 1 << 19, seed=2)
+                .reshape(8, 32768))
+    equal("K2 flat [8, 32768] of 512K", envelope.elem_gather(tp, fi, "flat"),
+          envelope.elem_gather_plain(tp, fi, "flat"))
+    ai = tensor(common.uniform_idx(8192 * 128, 4096, seed=3).reshape(8192, 128))
+    equal("K2 axis0 [8192, 128] from [4096, 128]",
+          envelope.elem_gather(tp, ai, "axis0"),
+          envelope.elem_gather_plain(tp, ai, "axis0"))
+    del tp, fi, ai
+    i64 = i4.long()
+    stats("K2", "probe_round2 k_lane: take_along_axis on axis 1, [8192, 128]",
+          lambda: envelope.elem_gather(t4, i4, "axis1"),
+          lambda: envelope.elem_gather_plain(t4, i4, "axis1"),
+          lambda: torch.gather(t4, 1, i64),
+          common.elem_bytes(i4, common.distinct_along(i4, 1)), 0.0)
+    del t4, i4, i64
+
+    def held(key, name, got, exact):
+        torch.cuda.synchronize()
+        err = float((got.double() - exact).abs().max())
+        top = float(exact.abs().max())
+        print(f"{key} [{name}]: max abs err {err:.3e} from the f64 sum, "
+              f"{err / top:.3e} of its largest entry (tolerance "
+              f"{BWD_RTOL_OF_MAX:g})", flush=True)
+        if not err <= BWD_RTOL_OF_MAX * top:
+            raise SystemExit(f"{key} disagrees with the sum at {name}")
+        return err
+
+    # K3: probe_rmw's ray-coherent 2^21 rows into [32768, 128] f32.
+    rows = tensor(common.clustered_rows(1 << 21, 32768))
+    vals = torch.randn((1 << 21, 128), generator=gen, device=dev)
+    name = "probe_rmw: 2^21 clustered rows into [32768, 128] f32"
+    err = held("K3", name, envelope.row_scatter_add(rows, vals, 32768),
+               envelope.row_scatter_add_plain(rows, vals, 32768,
+                                              torch.float64))
+    stats("K3", name, lambda: envelope.row_scatter_add(rows, vals, 32768),
+          lambda: envelope.row_scatter_add_plain(rows, vals, 32768),
+          lambda: torch.zeros((32768, 128), device=dev)
+          .index_add_(0, rows, vals),
+          common.scatter_bytes(1 << 21, 512, 32768, common.distinct(rows)),
+          err)
+    del rows, vals
+
+    # K4: probe_bwd_var's v2d at f2l16, N = 2^18.
+    from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
+    from jnerf_tpu_torch.tools.archive import probe_bwd_var
+
+    spec = HashGridSpec(**probe_bwd_var.SPEC)
+    n_rows = max(spec.level_sizes) // 8
+    scales = np.asarray(spec.scales, np.float32)
+    p = common.Probe(dev)
+    pos, g, rows, slots = probe_bwd_var.inputs(p, spec)
+    name = (f"probe_bwd_var v2d: f2l16, N={pos.shape[0]}, {n_rows} rows a "
+            "level")
+    args = (pos, g, rows, slots, scales, n_rows)
+    err = held("K4", name, envelope.packed_hash_scatter(*args),
+               envelope.packed_hash_scatter_plain(*args, dtype=torch.float64))
+    L = spec.n_levels
+    seg = torch.cat([(lvl * n_rows + rows[lvl].long()) * 8 + slots[lvl].long()
+                     for lvl in range(L)])
+    contrib = torch.cat([envelope.packed_contributions(
+        pos, g, float(scales[lvl]), lvl, L) for lvl in range(L)])
+    stats("K4", name, lambda: envelope.packed_hash_scatter(*args),
+          lambda: envelope.packed_hash_scatter_plain(*args),
+          lambda: torch.zeros((L * n_rows * 8, 16), device=dev)
+          .index_add_(0, seg, contrib),
+          probe_bwd_var.k4_bytes(rows, slots, n_rows, 1, "v2d"), err)
+    return out
+
+
+def envelope_rows(env):
+    """The kernels line's rows of K1-K4 from run_envelope's result."""
+    rows = []
+    for key, label, lib in (
+            ("K1", "env_row_gather (K1)", "index_select"),
+            ("K2", "env_elem_gather (K2)", "torch.gather"),
+            ("K3", "env_row_scatter_add (K3)", "index_add_"),
+            ("K4", "env_packed_hash_scatter (K4)",
+             "index_add_ of the precomputed contributions: the scatter "
+             "alone")):
+        st = env["checks"][key]
+        rows.append(kernel_row(
+            label, "jnerf_tpu_torch/csrc/envelope.cu",
+            ", ".join(ENVELOPE_SITES[key]), env["totals"][key], st,
+            st["shape"], max_abs_err=st["err"], library=lib,
+            device_ms=st["device_ms"],
+            on_path="the ported archive probes (phase 20)",
+            probe_launches={name: c[key] for name, c in
+                            env["launches"].items() if c[key]}))
+    return rows
+
+
+def run_envelope(torch):
+    """Phase 20: each archived envelope probe's port through its main in
+    this process, the envelope counters set to 0 just before it and read
+    just after; raises if a probe failed, printed a false correctness line
+    or a non-positive time, or ran without its kernels.  Then
+    check_envelope.  Returns the launches, seconds and checks."""
+    import importlib
+
+    from jnerf_tpu_torch.ops import envelope
+    from jnerf_tpu_torch.tools.archive import common
+
+    t_phase = phase_start(torch)
+    counters = dict(envelope.KERNELS)
+    out = {"launches": {}, "seconds": {}}
+    for name, (argv, needs) in ENVELOPE_PROBES.items():
+        mod = importlib.import_module(f"jnerf_tpu_torch.tools.archive.{name}")
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        lines = mod.main(argv)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        counts = out["launches"][name] = read_counts(counters)
+        if any(counts[k] == 0 for k in needs):
+            raise SystemExit(f"{name}: {needs} did not all run: {counts}")
+        for ln in lines:
+            if ln.get("ok") is False or ("ms" in ln and not positive(ln["ms"])):
+                raise SystemExit(f"{name}: {ln}")
+        print(f"{name}: {out['seconds'][name]:.3f} s, launches {counts}",
+              flush=True)
+    out["totals"] = {k: sum(c[k] for c in out["launches"].values())
+                     for k in counters}
+    out["checks"] = check_envelope(torch, envelope, common)
+    secs, peak = phase_end(torch, "envelope probes", t_phase)
+    out.update(phase_s=secs, peak_mib=peak)
+    return out
+
 
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source and the g++ builds of the host-side
@@ -2625,8 +2858,8 @@ def build_kernels(torch, cuda_lib):
     from jnerf_tpu_torch import native
 
     t0 = time.perf_counter()
-    names = ("hash_encode", "fused_mlp")
-    preludes = (cuda_lib.hash_prelude(), "")
+    names = ("hash_encode", "fused_mlp", "envelope")
+    preludes = (cuda_lib.hash_prelude(), "", "")
     hosts = ("marching_tets", "jpeg", "mpeg4")
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:
         host = [pool.submit(native.build, h) for h in hosts]
@@ -2634,6 +2867,7 @@ def build_kernels(torch, cuda_lib):
         host_libs = [h.result() for h in host]
     cuda_lib.hash_encode_lib()
     cuda_lib.fused_mlp_lib()
+    cuda_lib.envelope_lib()
     native.marching_lib()
     print(f"built {', '.join(lib.name for lib in libs)} and "
           f"{', '.join(os.path.basename(h) for h in host_libs)} in "
@@ -2743,10 +2977,11 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-19 (the CLI, the xor kernels, the probe refresh, the mesh
+    """Phases 8-20 (the CLI, the xor kernels, the probe refresh, the mesh
     tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF,
-    Recursive-NeRF, data parallelism, the real-capture configs and the
-    measuring tools) in ``tmp``; returns the kernels line."""
+    Recursive-NeRF, data parallelism, the real-capture configs, the
+    measuring tools and the envelope probes) in ``tmp``; returns the
+    kernels line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -2783,6 +3018,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     fwd_keys = ("ms", "plain_ms", "bound_ms", "f32_ms")
     cap, cap_hs = run_captures(torch, run_net, hash_nbr, counters, tmp)
     tools = run_tools(torch, counters)
+    env = run_envelope(torch)
     tool_launches = {k: {name: c[k] for name, c in tools["launches"].items()}
                      for k in ("F", "B")}
     capture_launches = {k: {f"{name} {task}": cap[name][task]["launches"][k]
@@ -2903,6 +3139,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             uniform={m: xs["uniform"]["bwd"][m]
                      for m in ("ms", "plain_ms", "bound_ms", "library_ms")}),
     ]
+    kernels += envelope_rows(env)
     for k in kernels:
         k["max_abs_err"] = float(k["max_abs_err"])
     return kernels

@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (`jnerf_tpu_torch/csrc/*.cu`:
-``hash_encode`` and ``fused_mlp``).
+``hash_encode``, ``fused_mlp`` and ``envelope``).
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so a build takes
@@ -124,6 +124,31 @@ def fused_mlp_lib() -> ctypes.CDLL:
                      (lib.fused_mlp_bwd, _MLP_BWD_ARGS),
                      (lib.fused_density_mlp_fwd, _DENSITY_FWD_ARGS),
                      (lib.fused_mlp_bwd_blocks, [_I])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# env_row_gather(table, idx, w, out, n, chunks, n_rows, mode, stream)
+_ROW_GATHER_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+# env_elem_gather(src, idx, out, n, mode, w, src_rows, src_w, stream)
+_ELEM_GATHER_ARGS = [_P] * 3 + [_I] * 5 + [_P]
+# env_row_scatter_add(idx, vals, out, n, chunks, n_rows, stream)
+_ROW_SCATTER_ARGS = [_P] * 3 + [_I] * 3 + [_P]
+# env_packed_hash_scatter(pos, g, rows, slots, scales, out, scratch, n, L,
+#                         n_rows, n_acc, mode, blk, stream)
+_PACKED_SCATTER_ARGS = [_P] * 7 + [_I] * 6 + [_P]
+
+
+@functools.lru_cache(maxsize=None)
+def envelope_lib() -> ctypes.CDLL:
+    """The envelope kernels K1-K4 (`ops/envelope.py`), built at first
+    use."""
+    lib = ctypes.CDLL(str(build("envelope")))
+    for fn, args in ((lib.env_row_gather, _ROW_GATHER_ARGS),
+                     (lib.env_elem_gather, _ELEM_GATHER_ARGS),
+                     (lib.env_row_scatter_add, _ROW_SCATTER_ARGS),
+                     (lib.env_packed_hash_scatter, _PACKED_SCATTER_ARGS)):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib

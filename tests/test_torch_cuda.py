@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from jnerf_tpu_torch.ops import fused_mlp, hash_grid, hash_nbr, hash_xor
+from jnerf_tpu_torch.ops import envelope, fused_mlp, hash_grid, hash_nbr, hash_xor
 from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
 
 pytestmark = pytest.mark.cuda
@@ -392,3 +392,145 @@ def test_xor_wrappers_refuse_bad_inputs(dev):
         hash_xor.encode_xor_fwd(spec, table, pos, torch.float16)
     with pytest.raises(ValueError):
         hash_xor.grad_table_xor(spec, pos, g[:, :3].contiguous(), True)
+
+
+# ---------------------------------------------------------------- envelope
+# The envelope kernels K1-K4 (ops/envelope.py) at the archived probes'
+# shapes and at a ragged N (100003).  K1 and K2 copy or round once, so they
+# equal their twins bit for bit; K3 and K4 add with f32 atomics and are
+# held to the float64 sum of the same f32 contributions within 1e-5 of its
+# largest entry (as kernel B in chip_smoke.py).
+RAGGED = 100_003
+
+
+def _idx(n, hi, dev, seed=0, lo=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+
+
+def _randn(shape, dev, dtype=torch.float32, seed=1):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("t,w,dtype,n", [
+    (65536, 128, torch.float32, 1 << 20),   # probe_loop.mk_gather
+    (4096, 128, torch.float32, 1 << 20),    # probe_round2.k_loop
+    (1 << 19, 8, torch.bfloat16, 1 << 22),  # 16-byte rows
+    (1 << 19, 8, torch.float32, RAGGED),    # 32-byte rows
+    (4096, 128, torch.float32, RAGGED),
+])
+def test_row_gather_is_its_twin(dev, t, w, dtype, n):
+    """K1 copies rows, and an index outside the table (a few negative,
+    a few past it) gives a zero row, bit for bit as its twin."""
+    table = _randn((t, w), dev, dtype)
+    idx = _idx(n, t + 64, dev, lo=-64)
+    before = envelope.row_gather.launches
+    got = envelope.row_gather(table, idx)
+    assert envelope.row_gather.launches == before + 1
+    assert torch.equal(got, envelope.row_gather_plain(table, idx))
+
+
+@pytest.mark.parametrize("n", [1 << 20, RAGGED])
+def test_row_gather_weighted_and_lane_sum(dev, n):
+    """K1 with w (probe_round2.k_fused) and with lane sums
+    (probe_tpu.k_rows) at 128- and 32-lane rows, and a 128-row table read
+    by indices up to 4096 (probe_tpu.k_onehot): bit for bit."""
+    table = _randn((4096, 128), dev)
+    idx = _idx(n, 4096, dev)
+    wt = _randn((n, 128), dev, seed=2)
+    assert torch.equal(envelope.row_gather(table, idx, wt),
+                       envelope.row_gather_plain(table, idx, wt))
+    for width in (128, 32, 4):
+        tw = table[:, :width].contiguous()
+        assert torch.equal(envelope.row_gather(tw, idx, lane_sum=True),
+                           envelope.row_gather_plain(tw, idx, lane_sum=True))
+    small = table[:128].contiguous()
+    got = envelope.row_gather(small, idx)
+    assert torch.equal(got, envelope.row_gather_plain(small, idx))
+    assert int((got[idx >= 128] != 0).sum()) == 0
+
+
+@pytest.mark.parametrize("mode,src_shape,idx_shape,hi", [
+    ("flat", (4096, 128), (8, 32768), 1 << 19),      # probe_tpu.k_flat
+    ("flat", (4096, 128), (RAGGED,), 1 << 19),
+    ("axis0", (512, 128), (8192, 128), 512),          # probe_tpu2.k_tala0
+    ("axis0", (4096, 128), (RAGGED, 128), 4096),
+    ("axis1", (8192, 128), (8192, 128), 128),         # probe_tpu2.k_tala1
+    ("axis1", (RAGGED, 128), (RAGGED, 128), 128),     # probe_round2.k_lane
+])
+def test_elem_gather_is_its_twin(dev, mode, src_shape, idx_shape, hi):
+    src = _randn(src_shape, dev)
+    n = int(np.prod(idx_shape))
+    idx = _idx(n, hi + 3, dev, lo=-3).reshape(idx_shape)
+    before = envelope.elem_gather.launches
+    got = envelope.elem_gather(src, idx, mode)
+    assert envelope.elem_gather.launches == before + 1
+    assert torch.equal(got, envelope.elem_gather_plain(src, idx, mode))
+
+
+def _held(got, exact):
+    return float((got.double() - exact).abs().max()) \
+        <= 1e-5 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("n,rows,w,clustered", [
+    (1 << 21, 32768, 128, True),    # probe_rmw
+    (1 << 20, 16384, 128, False),   # probe_final section 3, probe_scatter2
+    (1 << 22, 1 << 19, 8, True),    # kernel B's 32-byte rows
+    (RAGGED, 1 << 19, 4, False),    # 16-byte rows
+])
+def test_row_scatter_add_is_the_exact_sum(dev, n, rows, w, clustered):
+    """K3 within 1e-5 of the largest entry of the f64 sum; indices
+    outside the rows are dropped."""
+    if clustered:
+        from jnerf_tpu_torch.tools.archive.common import clustered_rows
+
+        idx = torch.from_numpy(np.array(clustered_rows(n, rows))).to(dev)
+    else:
+        idx = _idx(n, rows + 16, dev, lo=-16)
+    vals = _randn((n, w), dev)
+    before = envelope.row_scatter_add.launches
+    got = envelope.row_scatter_add(idx, vals, rows)
+    assert envelope.row_scatter_add.launches == before + 1
+    assert _held(got, envelope.row_scatter_add_plain(idx, vals, rows,
+                                                     torch.float64))
+
+
+@pytest.mark.parametrize("n", [1 << 18, RAGGED])
+@pytest.mark.parametrize("variant", ["v2d", "alt2", "novals", "noscat"])
+def test_packed_hash_scatter_is_the_exact_sum(dev, variant, n):
+    """K4 at probe_bwd_var's f2l16 shapes (and a ragged N) within 1e-5 of
+    the largest entry of the f64 sum of its twin's contributions."""
+    spec = HashGridSpec(n_levels=16, log2_hashmap_size=19,
+                        max_level_size=1 << 18)
+    rng = np.random.default_rng(0)
+    pos = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32)).to(dev)
+    g = torch.from_numpy((rng.normal(size=(n, 32)) * 0.01)
+                         .astype(np.float32)).to(dev)
+    rows, slots = envelope.packed_rows_slots(spec, pos)
+    n_rows = max(spec.level_sizes) // 8
+    scales = np.asarray(spec.scales, np.float32)
+    n_acc, mode = (2, "v2d") if variant == "alt2" else (1, variant)
+    got = envelope.packed_hash_scatter(pos, g, rows, slots, scales, n_rows,
+                                       n_acc, mode)
+    exact = envelope.packed_hash_scatter_plain(
+        pos, g, rows, slots, scales, n_rows, n_acc, mode, dtype=torch.float64)
+    assert _held(got, exact)
+
+
+def test_envelope_wrappers_refuse_bad_inputs(dev):
+    """int64 indices, rows not a multiple of 16 bytes, misaligned vectors
+    and mismatched shapes raise on the card; nothing falls back."""
+    table = _randn((64, 8), dev)
+    idx = _idx(32, 64, dev)
+    with pytest.raises(TypeError):
+        envelope.row_gather(table, idx.long())
+    with pytest.raises(ValueError, match="16-byte"):
+        envelope.row_gather(_randn((64, 6), dev), idx)
+    with pytest.raises(ValueError, match="aligned"):
+        envelope.row_gather(_randn((65 * 8,), dev)[1:513].view(64, 8), idx)
+    with pytest.raises(ValueError):
+        envelope.row_scatter_add(idx, _randn((32, 6), dev), 64)
+    with pytest.raises(ValueError):
+        envelope.elem_gather(table, idx.reshape(4, 8), "axis1")

@@ -158,3 +158,61 @@ def test_quality_bar_is_the_jax_psnr_less_half_a_db():
         assert (cfg.dataset.train.scene, cfg.dataset.train.ssaa) == ("hard", 2)
     finally:
         cfg.clear()
+
+
+def test_envelope_rows_name_every_archived_pallas_call():
+    """Phase 20's kernel rows name every one of the 13 pallas_call sites of
+    tools/archive/ (a call, not a comment: probe_tpu2.py:90 is one) and
+    nothing else (probe_tpu.py:72 and probe_tpu2.py:93 run bodies of K1
+    and of K2, so two rows name each), and the phase runs the port of
+    every archived file that has one."""
+    from pathlib import Path
+
+    archive = Path(chip_smoke.__file__).resolve().parent / "tools" / "archive"
+    sites = {f"tools/archive/{path.name}:{i}"
+             for path in archive.glob("*.py")
+             for i, line in enumerate(path.read_text().splitlines(), 1)
+             if "pallas_call(" in line and not line.lstrip().startswith("#")}
+    assert len(sites) == 13
+    named = [s.split(" ")[0] for v in chip_smoke.ENVELOPE_SITES.values()
+             for s in v]
+    assert set(named) == sites
+    assert len(named) == 15
+    assert set(chip_smoke.ENVELOPE_PROBES) == {
+        s.split("/")[-1].split(".")[0] for s in sites}
+
+
+def test_envelope_bytes_of_the_timed_shapes():
+    """The bounds phase 20 prints: K1 at probe_loop's 2^20 rows of 512 B
+    from a 65,536-row table (every row read) is 4 MiB of indices + 32 MiB
+    of rows + 512 MiB out, 171.5 us at 3.35 TB/s; K3 at probe_rmw's 2^21
+    rows into 32,768 adds the zeroing and one read and one write of each
+    touched row to the indices and values."""
+    from jnerf_tpu_torch.tools.archive import common
+
+    k1 = chip_smoke.work(common.gather_bytes(1 << 20, 512, 65536), 0,
+                         chip_smoke.F32_FLOP_PER_S)
+    assert k1["bytes"] == 574_619_648
+    assert k1["bound_ms"] == pytest.approx(574_619_648 / 3.35e12 * 1e3)
+    assert k1["bound_by"] == "bytes"
+    k3 = common.scatter_bytes(1 << 21, 512, 32768, 32768)
+    assert k3 == 4 * (1 << 21) + 512 * (1 << 21) + 3 * 512 * 32768
+
+
+def test_envelope_rows_carry_every_key_of_the_kernels_line():
+    """Each of K1-K4's rows has every key the kernels line needs, its
+    launches from the probes' run and its sites."""
+    stats = dict(chip_smoke.work(1000, 0, chip_smoke.F32_FLOP_PER_S), ms=1.0,
+                 plain_ms=2.0, library_ms=0.5, err=0.0, shape="s",
+                 device_ms=0.9)
+    env = {"checks": {k: stats for k in ("K1", "K2", "K3", "K4")},
+           "totals": {"K1": 3, "K2": 4, "K3": 5, "K4": 6},
+           "launches": {"probe_loop": {"K1": 3, "K2": 4, "K3": 5, "K4": 6}}}
+    rows = chip_smoke.envelope_rows(env)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [r["launches"] for r in rows] == [3, 4, 5, 6]
+    for r in rows:
+        assert keys <= set(r) and r["route"] == "cuda"
+        assert r["source"] == "jnerf_tpu_torch/csrc/envelope.cu"
+        assert r["replaces"].startswith("tools/archive/probe_")

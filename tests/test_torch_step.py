@@ -106,8 +106,8 @@ def test_runner_refuses_missing_cuda(both_cfgs):
 
 
 def test_port_imports_no_jax():
-    """Importing the port, its quality tool, its bench and its measuring
-    tools, training two steps (fused MLP option on), rendering a pose of
+    """Importing the port, its quality tool, its bench, its measuring
+    tools, the envelope kernels and the ported archive probes, training two steps (fused MLP option on), rendering a pose of
     the demo path and building a tiny hard-scene dataset pull in none of
     JAX, the JAX package, optax, yaml, PIL, cv2 or imageio (checked in a
     fresh interpreter, beyond what torch itself imports)."""
@@ -133,6 +133,10 @@ import jnerf_tpu_torch.bench
 from jnerf_tpu_torch.tools import (
     ab_hash_quality, bench_psnr, probe_cap19, probe_compact, probe_demand,
     probe_tiers, time_step, tiny_ceiling_svox2, tool_util)
+import jnerf_tpu_torch.ops.envelope
+from jnerf_tpu_torch.tools.archive import (
+    common, probe_bwd_var, probe_final, probe_loop, probe_rmw, probe_round2,
+    probe_scatter, probe_scatter2, probe_tpu, probe_tpu2)
 from jnerf_tpu_torch.dataset import SyntheticSpheresDataset
 ds = SyntheticSpheresDataset(n_images=2, H=8, W=8, scene="hard", ssaa=2)
 assert ds.image_data.shape == (2 * 8 * 8, 4)

@@ -328,6 +328,55 @@ def jax_tool_dict_keys(rel, marker):
     raise AssertionError(f"no dict with {marker!r} in {rel}")
 
 
+def archived_kernels(rel, names, **bind):
+    """Load the functions ``names`` (found at any depth, so a kernel body
+    nested in a section function too) of the archived probe ``rel`` by
+    ``ast``, without running the file, and define them at top level in a
+    namespace of jax, jnp, lax, np, time, pltpu, the names in ``bind``
+    (the file's free names at small sizes: BLK, ROWS, L, NBLK, T, N, ...)
+    and a ``pl`` whose ``pallas_call`` is ``functools.partial(
+    pl.pallas_call, interpret=True)``.  Each call of a kernel built through
+    it appends (inputs, output) as numpy arrays to the returned list, also
+    under ``jax.jit``.  Returns (namespace, calls)."""
+    import ast
+    import functools
+    import time
+    import types
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    tree = ast.parse((REPO / rel).read_text())
+    defs = {n.name: n for n in ast.walk(tree)
+            if isinstance(n, ast.FunctionDef) and n.name in names}
+    missing = set(names) - set(defs)
+    assert not missing, f"{rel} defines no {sorted(missing)}"
+    calls = []
+    interpret = functools.partial(pl.pallas_call, interpret=True)
+
+    def record(args, out):
+        calls.append(([np.asarray(a) for a in args], np.asarray(out)))
+
+    def pallas_call(*a, **k):
+        f = interpret(*a, **k)
+
+        def run(*args):
+            out = f(*args)
+            jax.debug.callback(record, args, out)
+            return out
+
+        return run
+
+    proxy = types.SimpleNamespace(
+        **{k: getattr(pl, k) for k in dir(pl) if not k.startswith("_")})
+    proxy.pallas_call = pallas_call
+    ns = dict(jax=jax, jnp=jnp, lax=jax.lax, np=np, time=time, pl=proxy,
+              pltpu=pltpu, key=jax.random.PRNGKey(0), **bind)
+    module = ast.Module(body=[defs[n] for n in names], type_ignores=[])
+    exec(compile(module, str(REPO / rel), "exec"), ns)
+    return ns, calls
+
+
 def shrink_bench_cfg(monkeypatch):
     """Make every config the tools build through
     ``bench_cfg.ngp_synthetic_cfg`` tiny (4 images of 16^2, 256 rays, a
