@@ -164,8 +164,9 @@ on failure:
    each required to launch its kernels (K1 row gather, K2 element gather,
    K3 row scatter-add, K4 packed hash scatter); then each kernel held to
    its twin at an archived shape (K1 and K2 bit for bit, K3 and K4 within
-   BWD_RTOL_OF_MAX of the f64 sum) and timed beside its twin and a
-   library call.
+   BWD_RTOL_OF_MAX of the f64 sum; K4's v2d, alt2 and novals also bit for
+   bit to the twin on CPU copies and to a second launch) and timed beside
+   its twin and a library call (K2 also its host time a call).
 
 Each of phases 9-20 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
@@ -2656,9 +2657,10 @@ ENVELOPE_SITES = {
 def check_envelope(torch, envelope, common):
     """Each envelope kernel against its twin at an archived probe's shape:
     K1 and K2 bit for bit, K3 and K4 within BWD_RTOL_OF_MAX of the largest
-    entry of the f64 sum of the same f32 contributions; kernel, twin and
-    library call timed plain / kernel / kernel / plain.  Returns the
-    kernels' stats."""
+    entry of the f64 sum of the same f32 contributions, and K4's v2d, alt2
+    and novals bit for bit (to a second launch and to the twin on CPU
+    copies: both sum in sample order); kernel, twin and library call timed
+    plain / kernel / kernel / plain.  Returns the kernels' stats."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -2669,20 +2671,27 @@ def check_envelope(torch, envelope, common):
         return torch.from_numpy(np.array(a)).to(dev)
 
     def stats(key, name, fn, plain, lib, nbytes, err):
+        from jnerf_tpu_torch.tools.launch_cost import host_us
         from jnerf_tpu_torch.tools.tool_util import kernel_time
 
         ms, plain_ms, four = time_pair(fn, plain)
         lib_ms = (cuda_ms(lib) + cuda_ms(lib)) / 2
-        # The kernels' own time (the profiler's sum; K3 and K4 include the
-        # zeroing of their output), apart from the wrapper's host time.
+        # The kernels' own time (the profiler's sum; K3 and noscat include
+        # the zeroing of their output), apart from the wrapper's host time.
         dev_ms, _ = kernel_time(fn, 20, dev)
         out[key] = dict(work(nbytes, 0, F32_FLOP_PER_S), ms=ms,
                         plain_ms=plain_ms, library_ms=lib_ms, err=err,
                         shape=name, device_ms=dev_ms)
+        host = ""
+        if key == "K2":  # host-bound at this shape: the wrapper's host time
+            out[key]["host_us"] = host_us(fn, 10000)
+            out[key]["library_host_us"] = host_us(lib, 10000)
+            host = (f"; host {out[key]['host_us']:.3f} us a call, library "
+                    f"{out[key]['library_host_us']:.3f}")
         print(f"time {key} [{name}]: kernel {ms:.4f} ms ({four[0]:.4f}, "
-              f"{four[1]:.4f}; device {dev_ms:.4f}), plain {plain_ms:.4f}, "
-              f"library {lib_ms:.4f}, bound {out[key]['bound_ms']:.4f} ms "
-              f"({nbytes} B)", flush=True)
+              f"{four[1]:.4f}; device {dev_ms:.4f}{host}), plain "
+              f"{plain_ms:.4f}, library {lib_ms:.4f}, bound "
+              f"{out[key]['bound_ms']:.4f} ms ({nbytes} B)", flush=True)
 
     def equal(name, got, want):
         torch.cuda.synchronize()
@@ -2759,11 +2768,12 @@ def check_envelope(torch, envelope, common):
           lambda: envelope.row_scatter_add_plain(rows, vals, 32768),
           lambda: torch.zeros((32768, 128), device=dev)
           .index_add_(0, rows, vals),
-          common.scatter_bytes(1 << 21, 512, 32768, common.distinct(rows)),
-          err)
+          common.scatter_bytes(1 << 21, 512, 32768), err)
     del rows, vals
 
-    # K4: probe_bwd_var's v2d at f2l16, N = 2^18.
+    # K4: probe_bwd_var's v2d, alt2 and novals at f2l16, N = 2^18, each
+    # equal to its twin on CPU copies of the inputs and to a second launch;
+    # v2d also held to the f64 sum and timed.
     from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
     from jnerf_tpu_torch.tools.archive import probe_bwd_var
 
@@ -2775,6 +2785,18 @@ def check_envelope(torch, envelope, common):
     name = (f"probe_bwd_var v2d: f2l16, N={pos.shape[0]}, {n_rows} rows a "
             "level")
     args = (pos, g, rows, slots, scales, n_rows)
+    cpu_args = tuple(a.cpu() for a in args[:4]) + args[4:]
+    for variant, n_acc, mode in (("v2d", 1, "v2d"), ("alt2", 2, "v2d"),
+                                 ("novals", 1, "novals")):
+        first = envelope.packed_hash_scatter(*args, n_acc, mode)
+        again = envelope.packed_hash_scatter(*args, n_acc, mode)
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise SystemExit(f"K4 {variant}: two launches differ")
+        equal(f"K4 {variant} [f2l16, N={pos.shape[0]}; two launches equal] "
+              "against its twin on CPU copies", first.cpu(),
+              envelope.packed_hash_scatter_plain(*cpu_args, n_acc, mode))
+        del first, again
     err = held("K4", name, envelope.packed_hash_scatter(*args),
                envelope.packed_hash_scatter_plain(*args, dtype=torch.float64))
     L = spec.n_levels
@@ -2786,7 +2808,7 @@ def check_envelope(torch, envelope, common):
           lambda: envelope.packed_hash_scatter_plain(*args),
           lambda: torch.zeros((L * n_rows * 8, 16), device=dev)
           .index_add_(0, seg, contrib),
-          probe_bwd_var.k4_bytes(rows, slots, n_rows, 1, "v2d"), err)
+          probe_bwd_var.k4_bytes(L, pos.shape[0], n_rows, 1, "v2d"), err)
     return out
 
 

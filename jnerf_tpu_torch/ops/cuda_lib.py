@@ -135,9 +135,17 @@ _ROW_GATHER_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 _ELEM_GATHER_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 # env_row_scatter_add(idx, vals, out, n, chunks, n_rows, stream)
 _ROW_SCATTER_ARGS = [_P] * 3 + [_I] * 3 + [_P]
-# env_packed_hash_scatter(pos, g, rows, slots, scales, out, scratch, n, L,
-#                         n_rows, n_acc, mode, blk, stream)
-_PACKED_SCATTER_ARGS = [_P] * 7 + [_I] * 6 + [_P]
+# env_packed_work(n, L, n_rows, n_acc, mode, tile_rows, chunk) -> int32s
+_PACKED_WORK_ARGS = [_I] * 7
+# env_packed_bins(pos, g, rows, slots, scales, work, recA, recB, n, L,
+#                 n_rows, n_acc, mode, tile_rows, chunk, stream)
+_PACKED_BINS_ARGS = [_P] * 8 + [_I] * 7 + [_P]
+# env_packed_accumulate(work, recA, recB, out, n, L, n_rows, n_acc, mode,
+#                       tile_rows, chunk, stream)
+_PACKED_ACC_ARGS = [_P] * 4 + [_I] * 7 + [_P]
+# env_packed_noscat(pos, g, slots, scales, out, scratch, n, L, n_rows, blk,
+#                   stream)
+_PACKED_NOSCAT_ARGS = [_P] * 6 + [_I] * 4 + [_P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,9 +156,13 @@ def envelope_lib() -> ctypes.CDLL:
     for fn, args in ((lib.env_row_gather, _ROW_GATHER_ARGS),
                      (lib.env_elem_gather, _ELEM_GATHER_ARGS),
                      (lib.env_row_scatter_add, _ROW_SCATTER_ARGS),
-                     (lib.env_packed_hash_scatter, _PACKED_SCATTER_ARGS)):
+                     (lib.env_packed_bins, _PACKED_BINS_ARGS),
+                     (lib.env_packed_accumulate, _PACKED_ACC_ARGS),
+                     (lib.env_packed_noscat, _PACKED_NOSCAT_ARGS)):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.env_packed_work.argtypes = _PACKED_WORK_ARGS
+    lib.env_packed_work.restype = ctypes.c_longlong
     return lib
 
 
@@ -158,3 +170,39 @@ def check(status: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+class Launch:
+    """A C launch function of a built library, called with the least host
+    work: ``Launch(envelope_lib, "env_elem_gather")(device_index, *args)``
+    resolves the function once (building the library at the first call),
+    appends the device's current stream (``torch.cuda.stream(...)`` is
+    followed), makes the device current only when it is not, and raises on
+    a nonzero cudaError_t.  The arguments are the function's own but the
+    stream."""
+
+    __slots__ = ("lib", "name", "_fn", "_dev", "_stream")
+
+    def __init__(self, lib, name: str):
+        self.lib, self.name, self._fn = lib, name, None
+
+    def __call__(self, device: int, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            import torch
+
+            # The current device and the raw handle of its current stream,
+            # without torch.cuda's lazy-init check and Stream object: a
+            # caller's tensor on the card means CUDA is initialized.
+            self._dev = torch._C._cuda_getDevice
+            self._stream = torch._C._cuda_getCurrentRawStream
+            fn = self._fn = getattr(self.lib(), self.name)
+        if device == self._dev():
+            status = fn(*args, self._stream(device))
+        else:
+            import torch
+
+            with torch.cuda.device(device):
+                status = fn(*args, self._stream(device))
+        if status:
+            raise RuntimeError(f"{self.name}: CUDA error {status}")

@@ -13,7 +13,9 @@ names every site each replaces and what bounds it):
   into a zeroed [n_rows, W] f32 (W a multiple of 4);
 - **K4** ``packed_hash_scatter(pos, g, rows, slots, scales, n_rows, ...)``:
   the packed hash-gradient scatter of ``probe_bwd_var.py`` (f2 levels, 128
-  lanes a row: slot * 16 + corner * 2 + feature).
+  lanes a row: slot * 16 + corner * 2 + feature), binned by tile of rows
+  and summed in sample order (``packed_hash_bins``: its bins alone;
+  ``packed_bin_plan`` / ``packed_bins_plain``: their plain twins).
 
 Indices are int32, as in the archive, and the wrappers refuse any other
 type.  An index outside its table gives a zero (gathers) or is dropped
@@ -22,9 +24,10 @@ type.  An index outside its table gives a zero (gathers) or is dropped
 
 Each kernel has a plain PyTorch twin here (``*_plain``).  A wrapper runs
 its twin only for CPU tensors; for CUDA tensors it launches the kernel or
-raises, and counts the launch in ``.launches``.  K1 and K2 equal their
-twins bit for bit; K3 and K4 add with f32 atomics, whose order varies from
-run to run.
+raises, and counts the launch in ``.launches``.  K1, K2 and K4 (but
+noscat) equal their twins bit for bit; K3 and K4's noscat add with f32
+atomics, whose order varies from run to run.  The wrappers launch through
+`cuda_lib.Launch`, each check done once.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cuda_lib import Launch, envelope_lib
 from .hash_grid import HashGridSpec
 
 MODES = {"flat": 0, "axis0": 1, "axis1": 2}
@@ -39,6 +43,29 @@ K4_MODES = {"v2d": 0, "novals": 1, "noscat": 2}
 # probe_bwd_var.py's BLK: noscat adds the first sample of each block.
 NOSCAT_BLK = 8192
 LANES = 128  # a packed row: 8 slots x 8 corners x 2 features
+# K4's bins: packed rows a tile, 64 or 128 (None: `k4_tile_rows` chooses
+# by mode, as csrc/envelope.cu's note says why), and samples of one level
+# a bin block sorts (a multiple of 256, at most 2048).
+K4_TILE_ROWS = None
+K4_BIN_CHUNK = 2048
+SIZE_LIMIT = 1 << 31  # the kernels index with 32-bit integers
+
+_ROW_GATHER = Launch(envelope_lib, "env_row_gather")
+_ELEM_GATHER = Launch(envelope_lib, "env_elem_gather")
+_ROW_SCATTER = Launch(envelope_lib, "env_row_scatter_add")
+_PACKED_BINS = Launch(envelope_lib, "env_packed_bins")
+_PACKED_ACC = Launch(envelope_lib, "env_packed_accumulate")
+_PACKED_NOSCAT = Launch(envelope_lib, "env_packed_noscat")
+
+
+def k4_tile_rows(n_acc: int, mode: str) -> int:
+    """K4's tile height: K4_TILE_ROWS if set, else 64 rows for v2d with
+    one accumulator (the sums held in registers: three blocks an SM) and
+    128 for alt2 (twice the tiles a level, so twice the bin pass's tile
+    tables at 64) and novals (integer counts, no sums held)."""
+    if K4_TILE_ROWS:
+        return K4_TILE_ROWS
+    return 64 if mode == "v2d" and n_acc == 1 else 128
 
 
 def _zero_outside(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
@@ -55,13 +82,12 @@ def _check_idx(idx: torch.Tensor, dim: int):
                          f"{tuple(idx.shape)}")
 
 
-def _cuda_check(what: str, *tensors: torch.Tensor, vectors=()):
-    """One device, contiguous; the tensors in ``vectors`` (read or added
-    as 16-byte vectors) 16-byte aligned."""
-    dev = tensors[0].device
-    for t in tensors + tuple(vectors):
-        if t.device != dev:
-            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+def _cuda_check(what: str, dev: int, *tensors: torch.Tensor, vectors=()):
+    """The tensors on card ``dev``, contiguous; those in ``vectors`` (read
+    or added as 16-byte vectors) 16-byte aligned."""
+    for t in tensors + vectors:
+        if t.get_device() != dev:
+            raise ValueError(f"{what}: tensors on cuda:{dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors")
     for t in vectors:
@@ -73,12 +99,9 @@ def _cuda_check(what: str, *tensors: torch.Tensor, vectors=()):
 def _check_sizes(what: str, *counts: int):
     """The kernels index with 32-bit integers: each count of elements (or
     16-byte chunks) a launch walks must be below 2^31."""
-    if any(c >= 1 << 31 for c in counts):
-        raise ValueError(f"{what}: a size reaches 2^31 ({counts})")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    for c in counts:
+        if c >= SIZE_LIMIT:
+            raise ValueError(f"{what}: a size reaches 2^31 ({counts})")
 
 
 # ------------------------------------------------------------------- K1
@@ -124,23 +147,20 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, w=None,
         raise ValueError("K1 sums rows of 4 x 2^k lanes, k <= 5")
     if table.device.type == "cpu":
         return row_gather_plain(table, idx, w, lane_sum)
-    _cuda_check("row_gather", idx, vectors=(table,) + (() if w is None else (w,)))
+    dev = table.get_device()
+    _cuda_check("row_gather", dev, idx,
+                vectors=(table,) if w is None else (table, w))
     n = idx.shape[0]
     _check_sizes("row_gather", n * chunks, table.shape[0] * chunks)
-    from .cuda_lib import check, envelope_lib
-
     if lane_sum:
         out = torch.empty((n,), dtype=torch.float32, device=table.device)
     else:
         out = torch.empty((n, table.shape[1]), dtype=table.dtype,
                           device=table.device)
     mode = 2 if lane_sum else (1 if w is not None else 0)
-    with torch.cuda.device(table.device):
-        status = envelope_lib().env_row_gather(
-            table.data_ptr(), idx.data_ptr(),
-            None if w is None else w.data_ptr(), out.data_ptr(), n, chunks,
-            table.shape[0], mode, _stream(table))
-    check(status, "env_row_gather")
+    _ROW_GATHER(dev, table.data_ptr(), idx.data_ptr(),
+                None if w is None else w.data_ptr(), out.data_ptr(), n, chunks,
+                table.shape[0], mode)
     if n:
         row_gather.launches += 1
     return out
@@ -150,17 +170,19 @@ row_gather.launches = 0
 
 
 # ------------------------------------------------------------------- K2
-def _elem_shapes(src, idx, mode):
-    if mode not in MODES:
+def _elem_shapes(src_shape, idx_shape, mode) -> int:
+    """The mode's number, after its shape checks."""
+    code = MODES.get(mode)
+    if code is None:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
-    if mode == "flat":
-        return
-    if src.dim() != 2 or idx.dim() != 2:
-        raise ValueError(f"{mode} takes 2-D src and indices")
-    k = 1 if mode == "axis0" else 0
-    if src.shape[k] != idx.shape[k]:
-        raise ValueError(f"{mode}: src {tuple(src.shape)} and indices "
-                         f"{tuple(idx.shape)} differ on axis {k}")
+    if code:
+        if len(src_shape) != 2 or len(idx_shape) != 2:
+            raise ValueError(f"{mode} takes 2-D src and indices")
+        k = 2 - code  # the axis the two must share
+        if src_shape[k] != idx_shape[k]:
+            raise ValueError(f"{mode}: src {tuple(src_shape)} and indices "
+                             f"{tuple(idx_shape)} differ on axis {k}")
+    return code
 
 
 def elem_gather_plain(src, idx, mode):
@@ -182,25 +204,30 @@ def elem_gather(src: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor
     src[i, idx[i, j]]``); f32, the output shaped as ``idx``."""
     if idx.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {idx.dtype}")
-    if src.dtype != torch.float32 or src.numel() < 1:
+    size = src.numel()
+    if src.dtype != torch.float32 or size < 1:
         raise ValueError(f"K2 takes a non-empty f32 src, got {src.dtype}")
-    _elem_shapes(src, idx, mode)
-    if src.device.type == "cpu":
+    src_shape, idx_shape = src.shape, idx.shape
+    code = _elem_shapes(src_shape, idx_shape, mode)
+    dev = src.get_device()
+    if dev < 0:
         return elem_gather_plain(src, idx, mode)
-    _cuda_check("elem_gather", src, idx)
-    _check_sizes("elem_gather", idx.numel(), src.numel())
-    from .cuda_lib import check, envelope_lib
-
-    out = torch.empty(idx.shape, dtype=torch.float32, device=src.device)
-    w = 1 if mode == "flat" else idx.shape[1]
-    rows, cols = ((src.numel(), 1) if mode == "flat"
-                  else (src.shape[0], src.shape[1]))
-    with torch.cuda.device(src.device):
-        status = envelope_lib().env_elem_gather(
-            src.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
-            MODES[mode], w, rows, cols, _stream(src))
-    check(status, "env_elem_gather")
-    if idx.numel():
+    if idx.get_device() != dev:
+        raise ValueError(f"elem_gather: tensors on {src.device} and "
+                         f"{idx.device}")
+    if not (src.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("elem_gather takes contiguous tensors")
+    n = idx.numel()
+    if n >= SIZE_LIMIT or size >= SIZE_LIMIT:
+        raise ValueError(f"elem_gather: a size reaches 2^31 ({n}, {size})")
+    out = torch.empty_like(idx, dtype=torch.float32)
+    if code:
+        _ELEM_GATHER(dev, src.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
+                     code, idx_shape[1], src_shape[0], src_shape[1])
+    else:
+        _ELEM_GATHER(dev, src.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
+                     0, 1, size, 1)
+    if n:
         elem_gather.launches += 1
     return out
 
@@ -231,17 +258,13 @@ def row_scatter_add(idx: torch.Tensor, vals: torch.Tensor,
                          f"n_rows >= 1, got {tuple(vals.shape)} {vals.dtype}")
     if vals.device.type == "cpu":
         return row_scatter_add_plain(idx, vals, n_rows)
-    _cuda_check("row_scatter_add", idx, vectors=(vals,))
+    dev = vals.get_device()
+    _cuda_check("row_scatter_add", dev, idx, vectors=(vals,))
     _check_sizes("row_scatter_add", vals.numel() // 4, n_rows * vals.shape[1])
-    from .cuda_lib import check, envelope_lib
-
     out = torch.zeros((n_rows, vals.shape[1]), dtype=torch.float32,
                       device=vals.device)
-    with torch.cuda.device(vals.device):
-        status = envelope_lib().env_row_scatter_add(
-            idx.data_ptr(), vals.data_ptr(), out.data_ptr(), idx.shape[0],
-            vals.shape[1] // 4, n_rows, _stream(vals))
-    check(status, "env_row_scatter_add")
+    _ROW_SCATTER(dev, idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                 idx.shape[0], vals.shape[1] // 4, n_rows)
     if idx.shape[0]:
         row_scatter_add.launches += 1
     return out
@@ -289,7 +312,8 @@ def packed_contributions(pos, g, scale, lvl, n_levels):
 def packed_hash_scatter_plain(pos, g, rows, slots, scales, n_rows, n_acc=1,
                               mode="v2d", blk=NOSCAT_BLK, dtype=torch.float32):
     """Plain twin of K4: [L * n_acc * n_rows, 128], the f32 contributions
-    summed in ``dtype`` (float64: the exact sum)."""
+    summed in ``dtype`` (float64: the exact sum) by ``index_add_``, which
+    adds each segment's in sample order from zero, as K4 does."""
     L, n = rows.shape
     out = torch.zeros((L * n_acc * n_rows, LANES), dtype=dtype,
                       device=pos.device)
@@ -315,20 +339,62 @@ def packed_hash_scatter_plain(pos, g, rows, slots, scales, n_rows, n_acc=1,
     return out
 
 
-def packed_hash_scatter(pos: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
-                        slots: torch.Tensor, scales, n_rows: int,
-                        n_acc: int = 1, mode: str = "v2d",
-                        blk: int = NOSCAT_BLK) -> torch.Tensor:
-    """K4: per level l and sample n, the 16 lanes slot * 16 + corner * 2 +
-    feature of row (l * n_acc + n % n_acc) * n_rows + rows[l, n] get the
-    sample's trilinear corner weights times its two upstream gradients.
+def packed_bin_plan(rows, slots, n_rows, n_acc=1, mode="v2d",
+                    tile_rows=None):
+    """K4's bins, plainly: each (level, sample) entry's tile [L, N] int64
+    ((l * n_acc + n % n_acc) * ceil(n_rows / tile_rows) + row // tile_rows;
+    -1 for an entry K4 drops), the kept entries' flat indices l * N + n in
+    bin order (by tile, in sample order within one: the key tile * L * N +
+    index is unique, so any sort of it is stable) and each tile's first
+    position [n_tiles + 1]."""
+    L, n = rows.shape
+    tile_rows = tile_rows or k4_tile_rows(n_acc, mode)
+    tps = -(-n_rows // tile_rows)
+    r = rows.long()
+    ok = (r >= 0) & (r < n_rows)
+    if mode != "novals":
+        ok &= (slots >= 0) & (slots < 8)
+    lvl = torch.arange(L, device=rows.device)[:, None]
+    acc = torch.arange(n, device=rows.device)[None, :] % n_acc
+    tile = (lvl * n_acc + acc) * tps + r.clamp(min=0) // tile_rows
+    tile = torch.where(ok, tile, torch.full_like(tile, -1))
+    flat = tile.reshape(-1)
+    kept = torch.nonzero(flat >= 0).squeeze(1)
+    order = kept[torch.argsort(flat[kept] * (L * n) + kept)]
+    start = torch.zeros(L * n_acc * tps + 1, dtype=torch.int64,
+                        device=rows.device)
+    start[1:] = torch.cumsum(torch.bincount(flat[kept],
+                                            minlength=L * n_acc * tps), 0)
+    return tile, order, start
 
-    pos [N, 3] f32, g [N, 2L] f32 (column f * L + l), rows / slots [L, N]
-    int32, scales L floats.  ``mode``: ``v2d`` (``n_acc`` 2 is the
-    archive's alt2), ``novals`` (ones into all 128 lanes of the row) or
-    ``noscat`` (each level's row 0 gets the first sample of each
-    ``blk``-sample block; every contribution is also stored to scratch).
-    Returns [L * n_acc * n_rows, 128] f32 (f32 atomics on the card)."""
+
+def packed_bins_plain(pos, g, rows, slots, scales, n_rows, n_acc=1,
+                      mode="v2d", tile_rows=None):
+    """Plain twin of K4's bin pass: (tile_start [n_tiles + 1] int32, recA
+    [M, 4] f32 (the fractions fract(p * scale + 0.5) and g0; None in
+    novals), recB [M, 2] int32 (g1's bits, or 0 in novals, and row-in-tile
+    * 8 + slot)), the M kept entries in bin order."""
+    L, n = rows.shape
+    tile_rows = tile_rows or k4_tile_rows(n_acc, mode)
+    _, order, start = packed_bin_plan(rows, slots, n_rows, n_acc, mode,
+                                      tile_rows)
+    lvl, s = order // n, order % n
+    seg = (rows.reshape(-1)[order].long() % tile_rows) * 8
+    if mode == "novals":
+        recB = torch.stack([torch.zeros_like(seg), seg], 1)
+        return start.to(torch.int32), None, recB.to(torch.int32)
+    seg = seg + slots.reshape(-1)[order].long()
+    sc = torch.as_tensor(np.asarray(scales, np.float32), device=pos.device)
+    q = pos[s] * sc[lvl][:, None] + 0.5
+    recA = torch.cat([q - torch.floor(q), g[s, lvl][:, None]], 1)
+    g1 = g[s, L + lvl].contiguous().view(torch.int32).long()
+    recB = torch.stack([g1, seg], 1).to(torch.int32)
+    return start.to(torch.int32), recA, recB
+
+
+def _k4_args(pos, g, rows, slots, scales, n_rows, n_acc, mode, blk):
+    """K4's checks (the card's rules, also for a CPU caller): returns
+    (L, n, scales as f32 numpy)."""
     _check_idx(rows, 2)
     _check_idx(slots, 2)
     L, n = rows.shape
@@ -346,26 +412,105 @@ def packed_hash_scatter(pos: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
             f"L <= 32 scales: got pos {tuple(pos.shape)}, g {tuple(g.shape)}, "
             f"rows {tuple(rows.shape)}, slots {tuple(slots.shape)}, "
             f"scales {scales.shape}")
-    if pos.device.type == "cpu":
+    return L, n, scales
+
+
+def _k4_bins(dev, pos, g, rows, slots, scales, n_rows, n_acc, mode):
+    """Launch K4's bin pass on card ``dev``: (work, recA, recB).  work
+    holds each (tile, chunk)'s first position in the bins, tile-major
+    (work[t * n_chunks] is tile t's first record, work[n_tiles * n_chunks]
+    the number kept); the records' arrays are sized for every entry."""
+    L, n = rows.shape
+    _check_sizes("packed_hash_scatter", 16 * L * n, L * n_acc * n_rows * LANES)
+    tile_rows = k4_tile_rows(n_acc, mode)
+    ints = envelope_lib().env_packed_work(n, L, n_rows, n_acc, K4_MODES[mode],
+                                          tile_rows, K4_BIN_CHUNK)
+    if ints < 0:
+        raise ValueError(f"packed_hash_scatter: K4 does not take {L} levels "
+                         f"of {n_rows} rows at N={n} (too many tiles)")
+    work = torch.empty(ints, dtype=torch.int32, device=pos.device)
+    recA = (None if mode == "novals" else
+            torch.empty((L * n, 4), dtype=torch.float32, device=pos.device))
+    recB = torch.empty((L * n, 2), dtype=torch.int32, device=pos.device)
+    _PACKED_BINS(dev, pos.data_ptr(), g.data_ptr(), rows.data_ptr(),
+                 slots.data_ptr(), scales.ctypes.data, work.data_ptr(),
+                 None if recA is None else recA.data_ptr(), recB.data_ptr(),
+                 n, L, n_rows, n_acc, K4_MODES[mode], tile_rows, K4_BIN_CHUNK)
+    return work, recA, recB
+
+
+def packed_hash_bins(pos, g, rows, slots, scales, n_rows, n_acc=1,
+                     mode="v2d"):
+    """K4's bin pass alone (v2d or novals), as `packed_bins_plain`
+    returns it; on CUDA tensors the kernels' bins, cut to the kept
+    entries.  Not counted: K4's launches are counted by
+    `packed_hash_scatter`."""
+    _, n, scales = _k4_args(pos, g, rows, slots, scales, n_rows, n_acc, mode,
+                            NOSCAT_BLK)
+    if mode == "noscat":
+        raise ValueError("noscat has no bins")
+    dev = pos.get_device()
+    if dev < 0:
+        return packed_bins_plain(pos, g, rows, slots, scales, n_rows, n_acc,
+                                 mode)
+    _cuda_check("packed_hash_bins", dev, pos, g, rows, slots)
+    if n == 0:
+        return packed_bins_plain(pos, g, rows, slots, scales, n_rows, n_acc,
+                                 mode)
+    work, recA, recB = _k4_bins(dev, pos, g, rows, slots, scales, n_rows,
+                                n_acc, mode)
+    n_tiles = rows.shape[0] * n_acc * -(-n_rows // k4_tile_rows(n_acc, mode))
+    n_chunks = -(-n // K4_BIN_CHUNK)
+    tile_start = work[:n_tiles * n_chunks + 1:n_chunks]
+    m = int(tile_start[-1])
+    return tile_start, None if recA is None else recA[:m], recB[:m]
+
+
+def packed_hash_scatter(pos: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
+                        slots: torch.Tensor, scales, n_rows: int,
+                        n_acc: int = 1, mode: str = "v2d",
+                        blk: int = NOSCAT_BLK) -> torch.Tensor:
+    """K4: per level l and sample n, the 16 lanes slot * 16 + corner * 2 +
+    feature of row (l * n_acc + n % n_acc) * n_rows + rows[l, n] get the
+    sample's trilinear corner weights times its two upstream gradients.
+
+    pos [N, 3] f32, g [N, 2L] f32 (column f * L + l), rows / slots [L, N]
+    int32, scales L floats.  ``mode``: ``v2d`` (``n_acc`` 2 is the
+    archive's alt2), ``novals`` (ones into all 128 lanes of the row) or
+    ``noscat`` (each level's row 0 gets the first sample of each
+    ``blk``-sample block; every contribution is also stored to scratch).
+    Returns [L * n_acc * n_rows, 128] f32: on the card v2d and novals sum
+    in tiles, in sample order, equal to the twin bit for bit; noscat adds
+    its few sums with f32 atomics."""
+    L, n, scales = _k4_args(pos, g, rows, slots, scales, n_rows, n_acc, mode,
+                            blk)
+    dev = pos.get_device()
+    if dev < 0:
         return packed_hash_scatter_plain(pos, g, rows, slots, scales, n_rows,
                                          n_acc, mode, blk)
-    _cuda_check("packed_hash_scatter", pos, g, rows, slots)
-    _check_sizes("packed_hash_scatter", 16 * L * n, L * n_acc * n_rows * LANES)
-    from .cuda_lib import check, envelope_lib
-
-    out = torch.zeros((L * n_acc * n_rows, LANES), dtype=torch.float32,
-                      device=pos.device)
-    scratch = (torch.empty((L * n, 16), dtype=torch.float32, device=pos.device)
-               if mode == "noscat" else None)
-    with torch.cuda.device(pos.device):
-        status = envelope_lib().env_packed_hash_scatter(
-            pos.data_ptr(), g.data_ptr(), rows.data_ptr(), slots.data_ptr(),
-            scales.ctypes.data, out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), n, L, n_rows,
-            n_acc, K4_MODES[mode], blk, _stream(pos))
-    check(status, "env_packed_hash_scatter")
-    if n:
-        packed_hash_scatter.launches += 1
+    _cuda_check("packed_hash_scatter", dev, pos, g, rows, slots)
+    if n == 0:
+        return torch.zeros((L * n_acc * n_rows, LANES), dtype=torch.float32,
+                           device=pos.device)
+    if mode == "noscat":
+        _check_sizes("packed_hash_scatter", 16 * L * n, L * n_rows * LANES)
+        out = torch.zeros((L * n_rows, LANES), dtype=torch.float32,
+                          device=pos.device)
+        scratch = torch.empty((L * n, 16), dtype=torch.float32,
+                              device=pos.device)
+        _PACKED_NOSCAT(dev, pos.data_ptr(), g.data_ptr(), slots.data_ptr(),
+                       scales.ctypes.data, out.data_ptr(), scratch.data_ptr(),
+                       n, L, n_rows, blk)
+    else:
+        work, recA, recB = _k4_bins(dev, pos, g, rows, slots, scales,
+                                    n_rows, n_acc, mode)
+        out = torch.empty((L * n_acc * n_rows, LANES), dtype=torch.float32,
+                          device=pos.device)
+        _PACKED_ACC(dev, work.data_ptr(),
+                    None if recA is None else recA.data_ptr(),
+                    recB.data_ptr(), out.data_ptr(), n, L, n_rows, n_acc,
+                    K4_MODES[mode], k4_tile_rows(n_acc, mode), K4_BIN_CHUNK)
+    packed_hash_scatter.launches += 1
     return out
 
 

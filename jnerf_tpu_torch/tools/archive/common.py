@@ -3,10 +3,11 @@ timers, and the line each probe prints.
 
 A line is the archived probe's own text (its name and its numbers, in its
 format) followed by ``[rate, bytes, bound, what ran]``.  The bound counts
-each byte once at the card's memory rate: the indices, the rows read (each
-distinct row once), the output written; a scatter also counts the zeroing
-of its output and one read and one write of each accumulator row it
-touches.  A line's record (``Probe.lines``) keeps the numbers unrounded.
+each byte once at the card's memory rate, as kernel B's bound does
+(`chip_smoke.py`'s ``hash_bwd_work``): each input the function reads,
+once (the indices, each distinct row of a gather, a scatter's values),
+and the output, written once.  A line's record (``Probe.lines``) keeps the
+numbers unrounded.
 
 Times are CUDA-event means of back-to-back launches after one warm-up
 call (``REPS`` of them), or, with ``flush``, the sum of each launch's own
@@ -86,12 +87,11 @@ def gather_bytes(n, row_bytes, rows_read, out_row_bytes=None, w_row_bytes=0):
     return 4 * n + row_bytes * rows_read + (out + w_row_bytes) * n
 
 
-def scatter_bytes(n, row_bytes, n_rows, touched, val_row_bytes=None):
+def scatter_bytes(n, row_bytes, n_rows, val_row_bytes=None):
     """A row scatter-add: n int32 indices and n value rows in, the
-    zeroing of the [n_rows] output, one read and one write of each of the
-    ``touched`` accumulator rows."""
+    [n_rows] output written once."""
     val = row_bytes if val_row_bytes is None else val_row_bytes
-    return 4 * n + val * n + row_bytes * n_rows + 2 * row_bytes * touched
+    return 4 * n + val * n + row_bytes * n_rows
 
 
 def bound_ms(nbytes: int, flops: int = 0,

@@ -1,7 +1,8 @@
 """Variants of the packed hash-gradient scatter at the reference's f2l16
 shapes: the counterpart of `tools/archive/probe_bwd_var.py`.
 
-    python3 -m jnerf_tpu_torch.tools.archive.probe_bwd_var [noscat novals v2d alt2 v3d] [--cpu]
+    python3 -m jnerf_tpu_torch.tools.archive.probe_bwd_var [noscat novals v2d alt2 v3d]
+        [--tile-rows 64,128] [--split] [--cpu]
 
 At 16 levels of 2 features, ``log2_hashmap_size`` 19 and a 2^18-entry
 level cap (ROWS = 32768 packed rows of 8 entries a level), N = 2^18
@@ -12,7 +13,10 @@ uniform samples and g ~ 0.01 N(0, 1) (numpy, seed 0): the archive's
 (the contribution pass without the scatter).  Each (level, sample)'s row
 and slot come from the port's own hash (``packed_rows_slots``).  ``v3d``
 (the archive's library path) is the port's kernel B
-(``hash_nbr.grad_table``) on the same samples.
+(``hash_nbr.grad_table``) on the same samples.  ``--tile-rows`` times
+K4 at each of the given tile heights (``envelope.K4_TILE_ROWS``: 64 or
+128; by default ``envelope.k4_tile_rows`` chooses by mode); ``--split`` prints each K4 variant's kernels, device µs a call (the
+profiler's sums over 10 calls; on the card only).
 """
 
 from __future__ import annotations
@@ -43,22 +47,43 @@ def inputs(p, spec):
     return pos, g, rows.contiguous(), slots.contiguous()
 
 
-def k4_bytes(rows, slots, n_rows, n_acc, mode):
-    """K4's least traffic: pos, g, rows and slots in (12 + 16 L bytes a
-    sample), the zeroing of the output, one read and one write of each
-    64-byte slot segment (a 512-byte row for novals) it adds into, and
-    noscat's 64-byte contribution a (level, sample) written to scratch."""
-    L, n = rows.shape
-    nbytes = 12 * n + 16 * L * n + L * n_acc * n_rows * 512
-    lvl = torch.arange(L, device=rows.device)[:, None]
-    acc = torch.arange(n, device=rows.device)[None, :] % n_acc
-    row = (lvl * n_acc + acc) * n_rows + rows.long()
+def k4_bytes(L, n, n_rows, n_acc, mode):
+    """K4's least traffic, counted as kernel B's bound counts it: each
+    input the mode's function reads, once, and its output written once.
+    v2d reads pos, g, rows and slots (12 + 16 L bytes a sample); novals
+    the rows alone (4 L); noscat pos and g (12 + 8 L) and the slots of each
+    block's first sample, and writes its 64-byte contribution a (level,
+    sample) to scratch beside the output.  The output is L * n_acc *
+    n_rows rows of 512 bytes."""
+    out = L * n_acc * n_rows * 512
     if mode == "novals":
-        return nbytes + 2 * 512 * common.distinct(row)
+        return 4 * L * n + out
     if mode == "noscat":
-        first = slots[:, ::BLK].long() + 8 * lvl
-        return nbytes + 64 * L * n + 2 * 64 * common.distinct(first)
-    return nbytes + 2 * 64 * common.distinct(row * 8 + slots.long())
+        return 12 * n + 8 * L * n + 4 * L * -(-n // BLK) + 64 * L * n + out
+    return 12 * n + 16 * L * n + out
+
+
+def kernel_split(fn, device, reps: int = 10) -> dict:
+    """{kernel: device µs a call} of ``reps`` calls of ``fn`` under the
+    profiler, in launch order; {} on the CPU."""
+    if device.type != "cuda":
+        return {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize(device)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("(")[0]
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / reps
+    return split
 
 
 def main(argv=None):
@@ -66,34 +91,62 @@ def main(argv=None):
     ap.add_argument("variants", nargs="*", metavar="variant",
                     help=f"any of {', '.join(VARIANTS)} (all but v3d by "
                     "default)")
+    ap.add_argument("--tile-rows", help="comma-separated tile heights of "
+                    "K4's bins (64, 128); the wrapper's own by default")
+    ap.add_argument("--split", action="store_true",
+                    help="print each K4 variant's kernels' device time")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
     if set(args.variants) - set(VARIANTS):
         ap.error(f"variants are {', '.join(VARIANTS)}")
-    from jnerf_tpu_torch.ops import hash_nbr
-    from jnerf_tpu_torch.ops.envelope import packed_hash_scatter
+    from jnerf_tpu_torch.ops import envelope, hash_nbr
     from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
+
+    default_rows = envelope.K4_TILE_ROWS
+    tiles = [default_rows]
+    if args.tile_rows:
+        tiles = [int(x) for x in args.tile_rows.split(",")]
+        if set(tiles) - {64, 128}:
+            ap.error("--tile-rows takes 64 and 128")
 
     p = common.start(args.cpu, "probe_bwd_var")
     spec = HashGridSpec(**SPEC)
     L, n_rows = spec.n_levels, max(spec.level_sizes) // 8
     scales = np.asarray(spec.scales, np.float32)
     pos, g, rows, slots = inputs(p, spec)
-    for v in args.variants or VARIANTS[:4]:
-        if v == "v3d":
-            ms = p.time(lambda: hash_nbr.grad_table(spec, pos, g))
-            F = spec.n_features_per_level
-            p.emit(v, f"v3d (library): {ms:.1f} ms", ms, N * L,
-                   12 * N + 4 * F * L * N + 4 * F * spec.n_entries,
-                   "kernel B (hash_nbr.grad_table)")
-            continue
-        n_acc = 2 if v == "alt2" else 1
-        mode = "v2d" if v == "alt2" else v
-        ms = p.time(lambda: packed_hash_scatter(
-            pos, g, rows, slots, scales, n_rows, n_acc, mode, BLK))
-        p.emit(v, f"{v}: {ms:.1f} ms ({ms * 1e6 / (N * L):.2f} ns/row)", ms,
-               N * L, k4_bytes(rows, slots, n_rows, n_acc, mode),
-               f"K4 ({mode}, {n_acc} accumulator{'s' * (n_acc > 1)})")
+    try:
+        for v in args.variants or VARIANTS[:4]:
+            if v == "v3d":
+                ms = p.time(lambda: hash_nbr.grad_table(spec, pos, g))
+                F = spec.n_features_per_level
+                p.emit(v, f"v3d (library): {ms:.1f} ms", ms, N * L,
+                       12 * N + 4 * F * L * N + 4 * F * spec.n_entries,
+                       "kernel B (hash_nbr.grad_table)")
+                continue
+            n_acc = 2 if v == "alt2" else 1
+            mode = "v2d" if v == "alt2" else v
+            for rows_a_tile in tiles if mode != "noscat" else tiles[:1]:
+                envelope.K4_TILE_ROWS = rows_a_tile
+
+                def k4():
+                    return envelope.packed_hash_scatter(
+                        pos, g, rows, slots, scales, n_rows, n_acc, mode, BLK)
+
+                ms = p.time(k4)
+                rows_a_tile = envelope.k4_tile_rows(n_acc, mode)
+                tile = (f", {rows_a_tile}-row tiles" if mode != "noscat"
+                        else "")
+                p.emit(v, f"{v}: {ms:.1f} ms ({ms * 1e6 / (N * L):.2f} ns/row)",
+                       ms, N * L, k4_bytes(L, N, n_rows, n_acc, mode),
+                       f"K4 ({mode}, {n_acc} accumulator{'s' * (n_acc > 1)}"
+                       f"{tile})", tile_rows=rows_a_tile)
+                if args.split:
+                    split = kernel_split(k4, p.device)
+                    p.lines[-1]["split_us"] = split
+                    print("  kernels, device us a call: " + ", ".join(
+                        f"{k} {x:.1f}" for k, x in split.items()), flush=True)
+    finally:
+        envelope.K4_TILE_ROWS = default_rows
     return p.lines
 
 

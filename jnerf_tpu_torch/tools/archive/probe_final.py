@@ -39,8 +39,8 @@ def sec_xla_scatter(p, dtype, label):
     ms = p.time(lambda: torch.zeros((TBIG, 128), dtype=dtype, device=p.device)
                 .index_add_(0, idx, vals))
     _line(p, f"XLA scatter {label} [4M]->[1M,128]", ms, N,
-          common.scatter_bytes(N, 128 * vals.element_size(), TBIG,
-                               common.distinct(idx)), "library: index_add_")
+          common.scatter_bytes(N, 128 * vals.element_size(), TBIG),
+          "library: index_add_")
 
 
 def sec_pallas_scatter(p):
@@ -50,7 +50,7 @@ def sec_pallas_scatter(p):
     vl = torch.ones((NL, 128), device=p.device)
     ms = p.time(lambda: row_scatter_add(idxl, vl, TL))
     _line(p, "pallas RMW scatter [1M]->[16K,128]", ms, NL,
-          common.scatter_bytes(NL, 512, TL, common.distinct(idxl)), "K3")
+          common.scatter_bytes(NL, 512, TL), "K3")
 
 
 def sec_fwd(p, variant):

@@ -57,7 +57,7 @@ def main(argv=None):
     ms = p.time(lambda: row_scatter_add(idx0, vals, T))
     for unroll in (1, 8):
         _line(p, f"scatter unroll={unroll}", ms,
-              common.scatter_bytes(N, 512, T, touched),
+              common.scatter_bytes(N, 512, T),
               "K3 (one kernel for every unroll)")
     return p.lines
 

@@ -36,7 +36,7 @@ def main(argv=None):
     rows = p.tensor(common.clustered_rows(N, ROWS))
     vals = p.randn(N, 128)
     ms = p.time(lambda: row_scatter_add(rows, vals, ROWS))
-    nbytes = common.scatter_bytes(N, 512, ROWS, common.distinct(rows))
+    nbytes = common.scatter_bytes(N, 512, ROWS)
     for mode in args.modes or MODES:
         p.emit(f"rmw {mode}", f"rmw {mode}: {ms:.2f} ms -> "
                f"{ms * 1e6 / N:.2f} ns/row", ms, N, nbytes,

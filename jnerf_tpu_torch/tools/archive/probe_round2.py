@@ -112,7 +112,7 @@ def section_xla(p, shapes):
               common.gather_bytes(s.n, s.row_bytes, read, out_row_bytes=4),
               "library: index_select of sorted indices + row sum", shape=s)
         vals = torch.ones((s.n, s.width), dtype=s.dtype, device=p.device)
-        scat = common.scatter_bytes(s.n, s.row_bytes, s.t, read)
+        scat = common.scatter_bytes(s.n, s.row_bytes, s.t)
         _line(p, f"row scatter-add{s.tag}",
               p.time(lambda: torch.zeros((s.t, s.width), dtype=s.dtype,
                                          device=p.device)
@@ -161,7 +161,7 @@ def section_pallas_rate(p, shapes):
         vals = p.randn(s.n, s.width)
         _line(p, f"pallas ds-loop row scatter-add{s.tag}",
               p.time(lambda: row_scatter_add(idx, vals, s.t), s.flush), s.n,
-              common.scatter_bytes(s.n, s.row_bytes, s.t, read), "K3", shape=s)
+              common.scatter_bytes(s.n, s.row_bytes, s.t), "K3", shape=s)
         del vals, tbl
     t4 = p.randn(LANE_M // 128, 128)
     i4 = p.tensor(common.uniform_idx(LANE_M, 128).reshape(-1, 128))

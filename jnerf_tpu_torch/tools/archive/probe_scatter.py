@@ -43,7 +43,6 @@ def main(argv=None):
 
     p = common.start(args.cpu, "probe_scatter")
     idx = p.tensor(common.uniform_idx(N, T))
-    touched = common.distinct(idx)
     for W in (16, 128):
         for dt in (torch.float32, torch.bfloat16):
             vals = torch.ones((N, W), dtype=dt, device=p.device)
@@ -51,7 +50,7 @@ def main(argv=None):
             ms = p.time(lambda: torch.zeros((T, W), dtype=dt, device=p.device)
                         .index_add_(0, idx, vals))
             esz = vals.element_size()
-            _line(p, name, ms, N, common.scatter_bytes(N, W * esz, T, touched),
+            _line(p, name, ms, N, common.scatter_bytes(N, W * esz, T),
                   "library: index_add_")
             del vals
     idxl = p.tensor(common.uniform_idx(NL, TL))
@@ -64,7 +63,7 @@ def main(argv=None):
 
     ms = p.time(per_level)
     _line(p, "XLA per-level scatter x16 [256K]->[64K,16] f32", ms, NL * 16,
-          16 * common.scatter_bytes(NL, 64, TL, common.distinct(idxl)),
+          16 * common.scatter_bytes(NL, 64, TL),
           "library: 16 index_add_")
 
     i0 = p.tensor(common.uniform_idx(CHECK_N, CHECK_ROWS))
@@ -77,7 +76,7 @@ def main(argv=None):
     idx2 = p.tensor(common.uniform_idx(NL2, TL2))
     vals2 = torch.ones((NL2, 128), device=p.device)
     ms = p.time(lambda: row_scatter_add(idx2, vals2, TL2))
-    nbytes = common.scatter_bytes(NL2, 512, TL2, common.distinct(idx2))
+    nbytes = common.scatter_bytes(NL2, 512, TL2)
     for unroll in (8, 16):
         _line(p, f"pallas RMW scatter unroll={unroll} [1M]->[64K,128] f32", ms,
               NL2, nbytes, "K3 (one kernel for both unrolls)")

@@ -81,7 +81,7 @@ def main(argv=None):
     idx2 = p.tensor(common.uniform_idx(NL2, TL2))
     vals2 = torch.ones((NL2, 128), device=p.device)
     ms = p.time(lambda: row_scatter_add(idx2, vals2, TL2))
-    nbytes = common.scatter_bytes(NL2, 512, TL2, common.distinct(idx2))
+    nbytes = common.scatter_bytes(NL2, 512, TL2)
     for K in (2, 4):
         _line(p, f"pallas K={K} interleaved scatter [1M]->[16K,128]", ms, NL2,
               nbytes, "K3 (one kernel for every K)")

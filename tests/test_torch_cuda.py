@@ -397,9 +397,10 @@ def test_xor_wrappers_refuse_bad_inputs(dev):
 # ---------------------------------------------------------------- envelope
 # The envelope kernels K1-K4 (ops/envelope.py) at the archived probes'
 # shapes and at a ragged N (100003).  K1 and K2 copy or round once, so they
-# equal their twins bit for bit; K3 and K4 add with f32 atomics and are
-# held to the float64 sum of the same f32 contributions within 1e-5 of its
-# largest entry (as kernel B in chip_smoke.py).
+# equal their twins bit for bit; K3 and K4 are held to the float64 sum of
+# the same f32 contributions within 1e-5 of its largest entry (as kernel B
+# in chip_smoke.py); K3 and K4's noscat add with f32 atomics, and K4's
+# other modes also equal their twin bit for bit (they sum in sample order).
 RAGGED = 100_003
 
 
@@ -517,6 +518,88 @@ def test_packed_hash_scatter_is_the_exact_sum(dev, variant, n):
     exact = envelope.packed_hash_scatter_plain(
         pos, g, rows, slots, scales, n_rows, n_acc, mode, dtype=torch.float64)
     assert _held(got, exact)
+
+
+def _k4_inputs(dev, n, seed=0):
+    spec = HashGridSpec(n_levels=16, log2_hashmap_size=19,
+                        max_level_size=1 << 18)
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32)).to(dev)
+    g = torch.from_numpy((rng.normal(size=(n, 32)) * 0.01)
+                         .astype(np.float32)).to(dev)
+    rows, slots = envelope.packed_rows_slots(spec, pos)
+    return pos, g, rows, slots, np.asarray(spec.scales, np.float32)
+
+
+# (n, n_rows): probe_bwd_var's N and rows, a ragged N, and rows that are no
+# multiple of a tile (the rows at or past it are dropped).
+K4_SHAPES = [(1 << 18, 32768), (RAGGED, 32768), (1 << 18, 32768 - 40)]
+
+
+@pytest.mark.parametrize("n,n_rows", K4_SHAPES)
+@pytest.mark.parametrize("variant", ["v2d", "alt2", "novals"])
+def test_packed_hash_scatter_is_its_twin_bit_for_bit(dev, variant, n, n_rows):
+    """K4's v2d, alt2 and novals sum each segment in sample order, as the
+    twin's index_add_ does: equal to the twin on CPU copies of the inputs,
+    and two launches equal."""
+    pos, g, rows, slots, scales = _k4_inputs(dev, n)
+    n_acc, mode = (2, "v2d") if variant == "alt2" else (1, variant)
+    args = (pos, g, rows, slots, scales, n_rows, n_acc, mode)
+    before = envelope.packed_hash_scatter.launches
+    got = envelope.packed_hash_scatter(*args)
+    assert envelope.packed_hash_scatter.launches == before + 1
+    assert torch.equal(got, envelope.packed_hash_scatter(*args))
+    cpu = tuple(a.cpu() for a in args[:4]) + args[4:]
+    assert torch.equal(got.cpu(), envelope.packed_hash_scatter_plain(*cpu))
+
+
+@pytest.mark.parametrize("variant", ["v2d", "alt2", "novals"])
+def test_packed_hash_bins_are_the_plain_plan(dev, variant):
+    """K4's bin pass: each tile's first position and every record (the
+    fractions, g0, g1's bits, row-in-tile * 8 + slot) in the plain plan's
+    order, a stable sort of the entries by tile."""
+    pos, g, rows, slots, scales = _k4_inputs(dev, RAGGED, seed=3)
+    n_acc, mode = (2, "v2d") if variant == "alt2" else (1, variant)
+    args = (pos, g, rows, slots, scales, 32768 - 40, n_acc, mode)
+    got = envelope.packed_hash_bins(*args)
+    want = envelope.packed_hash_bins(*(tuple(a.cpu() for a in args[:4])
+                                       + args[4:]))
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.cpu(), b)
+
+
+def test_packed_hash_scatter_sums_in_sample_order(dev):
+    """The hand case of the CPU tests on the card: 1e8, 1, -1e8 into one
+    segment give 0, their sum in sample order."""
+    pos = torch.full((3, 3), 0.5, device=dev)
+    g = torch.tensor([[1e8, 0.0], [1.0, 0.0], [-1e8, 0.0]], device=dev)
+    rows = torch.full((1, 3), 2, dtype=torch.int32, device=dev)
+    slots = torch.full((1, 3), 5, dtype=torch.int32, device=dev)
+    out = envelope.packed_hash_scatter(pos, g, rows, slots, [1.0], 4)
+    assert torch.count_nonzero(out) == 0
+
+
+def test_envelope_kernels_on_a_side_stream(dev):
+    """K2 in every mode and K4 launched under torch.cuda.stream(s) run on
+    s and equal their twins."""
+    side = torch.cuda.Stream()
+    src = _randn((4096, 128), dev)
+    cases = [("flat", _idx(8 * 32768, (1 << 19) + 3, dev, lo=-3)
+              .reshape(8, 32768)),
+             ("axis0", _idx(4096 * 128, 4099, dev, lo=-3).reshape(4096, 128)),
+             ("axis1", _idx(4096 * 128, 131, dev, lo=-3).reshape(4096, 128))]
+    pos, g, rows, slots, scales = _k4_inputs(dev, 1 << 18)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        got = [envelope.elem_gather(src, idx, mode) for mode, idx in cases]
+        k4 = envelope.packed_hash_scatter(pos, g, rows, slots, scales, 32768)
+    side.synchronize()
+    for (mode, idx), out in zip(cases, got):
+        assert torch.equal(out, envelope.elem_gather_plain(src, idx, mode))
+    assert torch.equal(k4.cpu(), envelope.packed_hash_scatter_plain(
+        pos.cpu(), g.cpu(), rows.cpu(), slots.cpu(), scales, 32768))
 
 
 def test_envelope_wrappers_refuse_bad_inputs(dev):

@@ -313,13 +313,16 @@ def test_out_of_table_indices_read_zero_and_add_nothing():
 def test_gather_and_scatter_bytes_by_hand():
     """probe_loop's gather at N = 2^20 of 512-byte rows with 65,536
     distinct rows: indices 4 MiB + rows 32 MiB + output 512 MiB; its
-    scatter: indices 4 MiB + values 512 MiB + the zeroing 32 MiB + one
-    read and one write of each touched row, 64 MiB."""
+    scatter, counted as kernel B's bound counts (inputs read once, the
+    output written once): indices 4 MiB + values 512 MiB + the [65536,
+    128] output 32 MiB."""
     n, t_rows = 1 << 20, 65536
     assert common.gather_bytes(n, 512, t_rows) == \
         4 * n + 512 * t_rows + 512 * n == 574_619_648
-    assert common.scatter_bytes(n, 512, t_rows, t_rows) == \
-        4 * n + 512 * n + 512 * t_rows + 2 * 512 * t_rows == 641_728_512
+    assert common.scatter_bytes(n, 512, t_rows) == \
+        4 * n + 512 * n + 512 * t_rows == 574_619_648
+    assert common.scatter_bytes(n, 512, t_rows, val_row_bytes=256) == \
+        4 * n + 256 * n + 512 * t_rows
     # gather*w reads w too; a lane sum writes 4 bytes a row.
     assert common.gather_bytes(n, 512, 10, w_row_bytes=512) - \
         common.gather_bytes(n, 512, 10) == 512 * n
@@ -339,22 +342,111 @@ def test_element_gather_counts_distinct_elements():
 
 
 def test_packed_scatter_bytes_by_hand():
-    """K4 at 2 levels, 4 samples, 8 rows a level: pos 48 + g 64 + rows
-    and slots 64 bytes in, the zeroing of 2 x 8 rows of 512 bytes, and one
-    read and one write of each distinct 64-byte slot segment."""
+    """K4 at 2 levels, 4 samples, 8 rows a level, counted as kernel B's
+    bound counts: v2d reads pos 48 + g 64 + rows and slots 64 bytes and
+    writes 2 x 8 rows of 512 bytes (twice that with two accumulators);
+    novals reads the rows alone (32); noscat pos, g and the slots of each
+    8192-sample block's first sample (2 x 4), and writes 64 bytes of
+    contributions a (level, sample) beside its output."""
     from jnerf_tpu_torch.tools.archive import probe_bwd_var
 
-    rows = torch.tensor([[0, 0, 1, 1], [3, 3, 3, 3]], dtype=torch.int32)
-    slots = torch.tensor([[0, 0, 0, 2], [5, 5, 6, 5]], dtype=torch.int32)
-    base = 12 * 4 + 16 * 2 * 4 + 2 * 8 * 512
-    # segments: (0,0) (1,0) (1,2) at level 0; (3,5) (3,6) at level 1.
-    assert probe_bwd_var.k4_bytes(rows, slots, 8, 1, "v2d") == base + 2 * 64 * 5
-    # two accumulators: samples 0,2 and 1,3 add into different copies.
-    assert probe_bwd_var.k4_bytes(rows, slots, 8, 2, "v2d") == \
-        base + 2 * 8 * 512 + 2 * 64 * 7
-    # novals: whole rows (0, 1 at level 0; 3 at level 1).
-    assert probe_bwd_var.k4_bytes(rows, slots, 8, 1, "novals") == \
-        base + 2 * 512 * 3
+    out = 2 * 8 * 512
+    assert probe_bwd_var.k4_bytes(2, 4, 8, 1, "v2d") == 48 + 64 + 64 + out
+    assert probe_bwd_var.k4_bytes(2, 4, 8, 2, "v2d") == 48 + 64 + 64 + 2 * out
+    assert probe_bwd_var.k4_bytes(2, 4, 8, 1, "novals") == 32 + out
+    assert probe_bwd_var.k4_bytes(2, 4, 8, 1, "noscat") == \
+        48 + 64 + 8 + 64 * 8 + out
+    # probe_bwd_var's v2d: N = 2^18, 16 levels of 32768 rows, 0.1011 ms.
+    n = 1 << 18
+    assert probe_bwd_var.k4_bytes(16, n, 32768, 1, "v2d") == \
+        3_145_728 + 67_108_864 + 268_435_456 == 338_690_048
+
+
+def test_packed_scatter_sums_each_segment_in_sample_order():
+    """Three samples into one slot segment with corner weight 1 and g0 =
+    1e8, 1, -1e8: summed in sample order from zero, (1e8 + 1) - 1e8 is 0
+    in f32 (1e8 + 1 rounds to 1e8); another order gives 1.  The twin (and
+    K4 on the card) sums in sample order."""
+    pos = torch.full((3, 3), 0.5)  # scale 1: fract(0.5 + 0.5) = 0, X = (1, 0)
+    g = torch.tensor([[1e8, 0.0], [1.0, 0.0], [-1e8, 0.0]])
+    rows = torch.tensor([[2, 2, 2]], dtype=torch.int32)
+    slots = torch.tensor([[5, 5, 5]], dtype=torch.int32)
+    out = E.packed_hash_scatter(pos, g, rows, slots, [1.0], 4)
+    assert out[2, 5 * 16].item() == 0.0
+    assert out[2, 5 * 16 + 1].item() == 0.0  # G1 = g0 + (g1 - g0)
+    assert torch.count_nonzero(out) == 0
+
+
+@pytest.mark.parametrize("n_acc,mode,n_rows,tile_rows", [
+    (1, "v2d", 37, 8), (2, "v2d", 40, 16), (1, "novals", 37, 8),
+    (2, "novals", 128, 128)])
+def test_packed_bin_plan_is_a_stable_sort_by_tile(n_acc, mode, n_rows,
+                                                   tile_rows):
+    """K4's bin plan (the kernels' bins, plainly): each kept entry's tile,
+    and the entries in np.argsort(kind="stable") order of it; rows and
+    slots outside their ranges dropped, the last tile of a slab short."""
+    L, n = 3, 500
+    rng = np.random.default_rng(0)
+    rows = rng.integers(-2, n_rows + 2, (L, n)).astype(np.int32)
+    slots = rng.integers(-1, 9, (L, n)).astype(np.int32)
+    tile, order, start = E.packed_bin_plan(t(rows), t(slots), n_rows, n_acc,
+                                           mode, tile_rows)
+    tps = -(-n_rows // tile_rows)
+    ok = (rows >= 0) & (rows < n_rows)
+    if mode == "v2d":
+        ok &= (slots >= 0) & (slots < 8)
+    want = ((np.arange(L)[:, None] * n_acc + np.arange(n) % n_acc) * tps
+            + np.maximum(rows, 0) // tile_rows)
+    np.testing.assert_array_equal(tile.numpy(), np.where(ok, want, -1))
+    flat = tile.numpy().reshape(-1)
+    kept = np.nonzero(flat >= 0)[0]
+    np.testing.assert_array_equal(
+        order.numpy(), kept[np.argsort(flat[kept], kind="stable")])
+    np.testing.assert_array_equal(
+        start.numpy(), np.concatenate([[0], np.cumsum(np.bincount(
+            flat[kept], minlength=L * n_acc * tps))]))
+
+
+@pytest.mark.parametrize("n_acc,mode", [(1, "v2d"), (2, "v2d"),
+                                        (1, "novals")])
+def test_plain_bins_summed_in_order_are_the_twin(n_acc, mode):
+    """K4's records (`packed_bins_plain`), their contributions summed
+    into their tiles in bin order from zero, give the twin's output bit
+    for bit: the records carry what the kernel's accumulate pass needs,
+    and bin order is sample order within a tile."""
+    L, n, n_rows, tr = 3, 400, 37, 8
+    rng = np.random.default_rng(1)
+    pos = t(rng.uniform(size=(n, 3)).astype(np.float32))
+    g = t((rng.normal(size=(n, 2 * L)) * 0.01).astype(np.float32))
+    rows = t(rng.integers(-1, n_rows + 1, (L, n)).astype(np.int32))
+    slots = t(rng.integers(0, 8, (L, n)).astype(np.int32))
+    slots[0, :40] = 3  # crowd a few segments
+    rows[0, :40] = 5
+    scales = np.asarray([3.0, 17.5, 101.25], np.float32)
+    start, recA, recB = E.packed_bins_plain(pos, g, rows, slots, scales,
+                                            n_rows, n_acc, mode, tr)
+    tps = -(-n_rows // tr)
+    tile = torch.repeat_interleave(torch.arange(len(start) - 1),
+                                   (start[1:] - start[:-1]).long())
+    row = ((tile // tps) * n_rows + (tile % tps) * tr
+           + recB[:, 1].long() // 8)
+    out = torch.zeros((L * n_acc * n_rows, E.LANES))
+    if mode == "novals":
+        out.index_add_(0, row, torch.ones((len(row), E.LANES)))
+    else:
+        f, g0 = recA[:, :3], recA[:, 3]
+        g1 = recB[:, 0].contiguous().view(torch.float32)
+        X = [(1.0 - f[:, d], (1.0 - f[:, d]) + (2.0 * f[:, d] - 1.0))
+             for d in range(3)]
+        G = (g0, g0 + (g1 - g0))
+        v = torch.stack([(X[0][c & 1] * X[1][(c >> 1) & 1])
+                         * X[2][(c >> 2) & 1] * G[k]
+                         for c in range(8) for k in range(2)], 1)
+        out.view(-1, 16).index_add_(0, row * 8 + recB[:, 1].long() % 8, v)
+    twin = E.packed_hash_scatter_plain(pos, g, rows, slots, scales, n_rows,
+                                       n_acc, mode)
+    assert torch.equal(out, twin)
+    assert torch.count_nonzero(twin) > 0
 
 
 # --------------------------------------------------------------- probes
@@ -480,9 +572,35 @@ def test_probe_round2_card_shapes(tiny):
         _module("probe_round2").main(["--cpu", "--row-bytes", "24"])
 
 
+def test_probe_bwd_var_tile_heights(tiny):
+    """--tile-rows times K4 at each tile height (noscat, which has no
+    tiles, once) and puts the wrapper's own back; --split adds no kernel
+    times on the CPU."""
+    lines = tiny("probe_bwd_var").main(
+        ["novals", "noscat", "--tile-rows", "64,128", "--split", "--cpu"])
+    assert [(ln["name"], ln["tile_rows"]) for ln in lines] == [
+        ("novals", 64), ("novals", 128), ("noscat", 64)]
+    assert all(ln["split_us"] == {} for ln in lines)
+    assert E.K4_TILE_ROWS is None
+    assert [E.k4_tile_rows(1, "v2d"), E.k4_tile_rows(2, "v2d"),
+            E.k4_tile_rows(1, "novals")] == [64, 128, 128]
+    with pytest.raises(SystemExit):
+        _module("probe_bwd_var").main(["--cpu", "--tile-rows", "256"])
+
+
 @pytest.mark.parametrize("name", sorted(TINY))
 def test_probe_refuses_to_run_without_a_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _module(name).main(ARGS.get(name, []))
 
+
+
+def test_launch_cost_refuses_to_run_without_a_card(monkeypatch):
+    """The launch-cost tool times ctypes launches: it runs on the card
+    only, and says so without one."""
+    from jnerf_tpu_torch.tools import launch_cost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_cost.main(["--calls", "10"])

@@ -186,8 +186,9 @@ def test_envelope_bytes_of_the_timed_shapes():
     """The bounds phase 20 prints: K1 at probe_loop's 2^20 rows of 512 B
     from a 65,536-row table (every row read) is 4 MiB of indices + 32 MiB
     of rows + 512 MiB out, 171.5 us at 3.35 TB/s; K3 at probe_rmw's 2^21
-    rows into 32,768 adds the zeroing and one read and one write of each
-    touched row to the indices and values."""
+    rows into 32,768 and K4 at probe_bwd_var's v2d count their inputs once
+    and their output once, as kernel B's bound does: 0.3280 and 0.1011
+    ms."""
     from jnerf_tpu_torch.tools.archive import common
 
     k1 = chip_smoke.work(common.gather_bytes(1 << 20, 512, 65536), 0,
@@ -195,8 +196,16 @@ def test_envelope_bytes_of_the_timed_shapes():
     assert k1["bytes"] == 574_619_648
     assert k1["bound_ms"] == pytest.approx(574_619_648 / 3.35e12 * 1e3)
     assert k1["bound_by"] == "bytes"
-    k3 = common.scatter_bytes(1 << 21, 512, 32768, 32768)
-    assert k3 == 4 * (1 << 21) + 512 * (1 << 21) + 3 * 512 * 32768
+    k3 = common.scatter_bytes(1 << 21, 512, 32768)
+    assert k3 == 4 * (1 << 21) + 512 * (1 << 21) + 512 * 32768 \
+        == 1_098_907_648
+    assert chip_smoke.work(k3, 0, chip_smoke.F32_FLOP_PER_S)["bound_ms"] \
+        == pytest.approx(0.3280, abs=5e-5)
+    from jnerf_tpu_torch.tools.archive import probe_bwd_var
+
+    k4 = probe_bwd_var.k4_bytes(16, 1 << 18, 32768, 1, "v2d")
+    assert chip_smoke.work(k4, 0, chip_smoke.F32_FLOP_PER_S)["bound_ms"] \
+        == pytest.approx(0.1011, abs=5e-5)
 
 
 def test_envelope_rows_carry_every_key_of_the_kernels_line():
