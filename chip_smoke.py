@@ -2671,8 +2671,7 @@ def check_envelope(torch, envelope, common):
         return torch.from_numpy(np.array(a)).to(dev)
 
     def stats(key, name, fn, plain, lib, nbytes, err):
-        from jnerf_tpu_torch.tools.launch_cost import host_us
-        from jnerf_tpu_torch.tools.tool_util import kernel_time
+        from jnerf_tpu_torch.tools.tool_util import host_us, kernel_time
 
         ms, plain_ms, four = time_pair(fn, plain)
         lib_ms = (cuda_ms(lib) + cuda_ms(lib)) / 2

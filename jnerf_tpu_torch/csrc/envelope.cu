@@ -65,7 +65,7 @@
 //   for alt2 (two accumulator copies double the tiles a level, and with
 //   them the bin pass's tile tables and strided count stores) and for
 //   novals (no sums held).
-//   probe_bwd_var --tile-rows 64,128 --split times both (PERF.md §6).
+//   PERF.md §6 has both heights' times at probe_bwd_var's shape.
 //   noscat keeps its contribution pass and its few float4 atomics.
 //
 // What bounds them: bytes, at random addresses.  K1 and K2 read each
@@ -238,20 +238,20 @@ __device__ __forceinline__ void contributions(const float f[3], float g0,
 // K4's bins.  An entry is a (level l, sample s); its tile is
 // (l * n_acc + s % n_acc) * tiles_per_slab + row / tile_rows, numbered
 // level-major, so a level's tiles are tiles_per_level consecutive ones.
-// A bin block walks `chunk` samples of one level.  counts is [levels *
+// A bin block walks kChunk samples of one level.  counts is [levels *
 // tiles_per_level, n_chunks] (a tile's row, its chunks in order) and one
 // more entry; the scan turns it into each (tile, chunk)'s first position
 // in the bins, and its last entry into the number of entries kept, so a
 // tile's records are [counts[t * n_chunks], counts[(t + 1) * n_chunks]).
 struct BinGeom {
   uint32_t n, L, n_rows, n_acc, tile_rows, tile_shift, tiles_per_slab,
-      tiles_per_level, chunk, n_chunks;
+      tiles_per_level, n_chunks;
   int mode;  // 0: v2d, 1: novals
 };
 
 constexpr int kBinThreads = 256;
 constexpr int kBinWarps = kBinThreads / 32;
-constexpr int kMaxChunk = 2048;  // samples a bin block, 8 a thread
+constexpr int kChunk = 2048;  // samples a bin block, 8 a thread
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 4;  // a scan block covers 4096 counts
 constexpr int kScanSpan = kScanThreads * kScanItems;
@@ -311,15 +311,15 @@ __global__ void __launch_bounds__(kBinThreads)
 packed_bin_count_kernel(const int32_t* __restrict__ rows,
                         const int32_t* __restrict__ slots, BinGeom G,
                         int32_t* __restrict__ counts) {
-  constexpr int kItems = kMaxChunk / kBinThreads;
+  constexpr int kItems = kChunk / kBinThreads;
   extern __shared__ int32_t hist[];  // [tiles_per_level]
   const uint32_t l = blockIdx.x % G.L, c = blockIdx.x / G.L;
   const uint32_t tpl = G.tiles_per_level;
-  const uint32_t s1 = min(G.n, (c + 1) * G.chunk);
+  const uint32_t s1 = min(G.n, (c + 1) * kChunk);
   int32_t r[kItems], slot[kItems];
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
-    const uint32_t s = c * G.chunk + it * kBinThreads + threadIdx.x;
+    const uint32_t s = c * kChunk + it * kBinThreads + threadIdx.x;
     r[it] = -1;
     slot[it] = 0;
     if (s < s1) {
@@ -333,7 +333,7 @@ packed_bin_count_kernel(const int32_t* __restrict__ rows,
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     if (r[it] < 0) continue;
-    const int key = bin_of(G, c * G.chunk + it * kBinThreads + threadIdx.x,
+    const int key = bin_of(G, c * kChunk + it * kBinThreads + threadIdx.x,
                            r[it], slot[it]);
     if (key >= 0) atomicAdd(hist + key, 1);
   }
@@ -416,31 +416,30 @@ packed_bin_scatter_kernel(const float* __restrict__ pos,
                           const int32_t* __restrict__ slots, Scales sc,
                           BinGeom G, const int32_t* __restrict__ offsets,
                           float4* __restrict__ recA, uint2* __restrict__ recB) {
-  constexpr int kItems = kMaxChunk / kBinThreads;
+  constexpr int kItems = kChunk / kBinThreads;  // groups of 32 a warp
   extern __shared__ float4 smem4[];
   __shared__ int32_t ws[kBinWarps];
-  const uint32_t tpl = G.tiles_per_level, chunk = G.chunk;
-  float4* stA = smem4;                                       // [chunk]
-  uint2* stB = reinterpret_cast<uint2*>(stA + chunk);        // [chunk]
-  int32_t* wcnt = reinterpret_cast<int32_t*>(stB + chunk);   // [warps][tpl]
+  const uint32_t tpl = G.tiles_per_level;
+  float4* stA = smem4;                                       // [kChunk]
+  uint2* stB = reinterpret_cast<uint2*>(stA + kChunk);       // [kChunk]
+  int32_t* wcnt = reinterpret_cast<int32_t*>(stB + kChunk);  // [warps][tpl]
   int32_t* lstart = wcnt + kBinWarps * tpl;                  // [tpl]
   int32_t* gbase = lstart + tpl;                             // [tpl]
-  uint16_t* skey = reinterpret_cast<uint16_t*>(gbase + tpl);  // [chunk]
+  uint16_t* skey = reinterpret_cast<uint16_t*>(gbase + tpl);  // [kChunk]
   const uint32_t l = blockIdx.x % G.L, c = blockIdx.x / G.L;
   const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (uint32_t k = threadIdx.x; k < tpl; k += kBinThreads) {
     gbase[k] = __ldg(offsets + ((size_t)l * tpl + k) * G.n_chunks + c);
     for (int w = 0; w < kBinWarps; ++w) wcnt[w * tpl + k] = 0;
   }
-  const uint32_t items = chunk / kBinThreads;  // groups of 32 a warp
-  const uint32_t s_warp = c * chunk + warp * items * 32 + lane;
+  const uint32_t s_warp = c * kChunk + warp * kItems * 32 + lane;
   int32_t r[kItems], slot[kItems];
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const uint32_t s = s_warp + it * 32;
     r[it] = -1;
     slot[it] = 0;
-    if (it < (int)items && s < G.n) {
+    if (s < G.n) {
       const size_t t = (size_t)l * G.n + s;
       r[it] = __ldg(rows + t);
       if (G.mode == 0) slot[it] = __ldg(slots + t);
@@ -453,7 +452,6 @@ packed_bin_scatter_kernel(const float* __restrict__ pos,
   for (int it = 0; it < kItems; ++it) {
     key[it] = -1;
     rank[it] = 0;
-    if (it >= (int)items) continue;  // block-uniform
     if (r[it] >= 0) key[it] = bin_of(G, s_warp + it * 32, r[it], slot[it]);
     const uint32_t peers = __match_any_sync(0xffffffffu, key[it]);
     const uint32_t before = peers & ((1u << lane) - 1);
@@ -709,13 +707,12 @@ packed_noscat_kernel(const float* __restrict__ pos, const float* __restrict__ g,
 bool fits(int64_t a, int64_t b) { return a >= 0 && b >= 0 && a * b < (1LL << 31); }
 
 // K4's geometry from the wrapper's sizes; false if a size is out of range
-// (tile_rows 64 or 128, chunk a multiple of 256 up to kMaxChunk).
+// (tile_rows 64 or 128).
 bool bin_geom(BinGeom* G, int n, int L, int n_rows, int n_acc, int mode,
-              int tile_rows, int chunk) {
+              int tile_rows) {
   if (n < 1 || L < 1 || L > kMaxLevels || n_rows < 1 || n_acc < 1 ||
       n_acc > 2 || mode < 0 || mode > 1 ||
-      (tile_rows != 64 && tile_rows != 128) || chunk < kBinThreads ||
-      chunk > kMaxChunk || chunk % kBinThreads || !fits(n, L) ||
+      (tile_rows != 64 && tile_rows != 128) || !fits(n, L) ||
       !fits((int64_t)L * n_acc * n_rows, 128))
     return false;
   G->n = n;
@@ -726,8 +723,7 @@ bool bin_geom(BinGeom* G, int n, int L, int n_rows, int n_acc, int mode,
   G->tile_shift = tile_rows == 64 ? 6 : 7;
   G->tiles_per_slab = (n_rows + tile_rows - 1) / tile_rows;
   G->tiles_per_level = n_acc * G->tiles_per_slab;
-  G->chunk = chunk;
-  G->n_chunks = (n + chunk - 1) / chunk;
+  G->n_chunks = (n + kChunk - 1) / kChunk;
   G->mode = mode;
   return G->tiles_per_level < 65536 &&
          fits((int64_t)L * G->tiles_per_level, G->n_chunks + 1);
@@ -833,13 +829,16 @@ extern "C" int env_row_scatter_add(const void* idx, const void* vals,
 // K4's int32 work space for these sizes (env_packed_bins' work), or -1
 // if K4 does not take them.
 extern "C" long long env_packed_work(int n, int L, int n_rows, int n_acc,
-                                     int mode, int tile_rows, int chunk) {
+                                     int mode, int tile_rows) {
   BinGeom G;
-  if (!bin_geom(&G, n, L, n_rows, n_acc, mode, tile_rows, chunk)) return -1;
+  if (!bin_geom(&G, n, L, n_rows, n_acc, mode, tile_rows)) return -1;
   int64_t m, nb;
   const int64_t ints = bin_work(G, &m, &nb);
   return ints < (1LL << 31) ? ints : -1;
 }
+
+// Samples a bin block walks: the work's counts are [tiles, ceil(n / this)].
+extern "C" int env_packed_chunk() { return kChunk; }
 
 // K4's bin pass (v2d, alt2 by n_acc 2; novals: mode 1).  work:
 // env_packed_work int32s (counts, then scanned into each (tile, chunk)'s
@@ -850,10 +849,9 @@ extern "C" int env_packed_bins(const void* pos, const void* g,
                                const void* rows, const void* slots,
                                const float* scales, void* work, void* recA,
                                void* recB, int n, int L, int n_rows, int n_acc,
-                               int mode, int tile_rows, int chunk,
-                               void* stream) {
+                               int mode, int tile_rows, void* stream) {
   BinGeom G;
-  if (!bin_geom(&G, n, L, n_rows, n_acc, mode, tile_rows, chunk))
+  if (!bin_geom(&G, n, L, n_rows, n_acc, mode, tile_rows))
     return (int)cudaErrorInvalidValue;
   Scales sc;
   for (int l = 0; l < L; ++l) sc.s[l] = scales[l];
@@ -863,7 +861,7 @@ extern "C" int env_packed_bins(const void* pos, const void* g,
   int32_t* counts = (int32_t*)work;
   const size_t hist = G.tiles_per_level * sizeof(int32_t);
   const size_t scat =
-      (size_t)G.chunk * (16 + 8 + 2) + (kBinWarps + 2) * hist;
+      (size_t)kChunk * (16 + 8 + 2) + (kBinWarps + 2) * hist;
   int err = allow_smem((const void*)packed_bin_count_kernel, hist);
   if (!err) err = allow_smem((const void*)packed_bin_scatter_kernel, scat);
   if (err) return err;
@@ -887,9 +885,9 @@ extern "C" int env_packed_bins(const void* pos, const void* g,
 extern "C" int env_packed_accumulate(const void* work, const void* recA,
                                      const void* recB, void* out, int n, int L,
                                      int n_rows, int n_acc, int mode,
-                                     int tile_rows, int chunk, void* stream) {
+                                     int tile_rows, void* stream) {
   BinGeom G;
-  if (!bin_geom(&G, n, L, n_rows, n_acc, mode, tile_rows, chunk))
+  if (!bin_geom(&G, n, L, n_rows, n_acc, mode, tile_rows))
     return (int)cudaErrorInvalidValue;
   const size_t smem = acc_smem(tile_rows, mode);
   const void* kernel = tile_rows == 64

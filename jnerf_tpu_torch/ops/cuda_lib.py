@@ -135,14 +135,14 @@ _ROW_GATHER_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 _ELEM_GATHER_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 # env_row_scatter_add(idx, vals, out, n, chunks, n_rows, stream)
 _ROW_SCATTER_ARGS = [_P] * 3 + [_I] * 3 + [_P]
-# env_packed_work(n, L, n_rows, n_acc, mode, tile_rows, chunk) -> int32s
-_PACKED_WORK_ARGS = [_I] * 7
+# env_packed_work(n, L, n_rows, n_acc, mode, tile_rows) -> int32s
+_PACKED_WORK_ARGS = [_I] * 6
 # env_packed_bins(pos, g, rows, slots, scales, work, recA, recB, n, L,
-#                 n_rows, n_acc, mode, tile_rows, chunk, stream)
-_PACKED_BINS_ARGS = [_P] * 8 + [_I] * 7 + [_P]
+#                 n_rows, n_acc, mode, tile_rows, stream)
+_PACKED_BINS_ARGS = [_P] * 8 + [_I] * 6 + [_P]
 # env_packed_accumulate(work, recA, recB, out, n, L, n_rows, n_acc, mode,
-#                       tile_rows, chunk, stream)
-_PACKED_ACC_ARGS = [_P] * 4 + [_I] * 7 + [_P]
+#                       tile_rows, stream)
+_PACKED_ACC_ARGS = [_P] * 4 + [_I] * 6 + [_P]
 # env_packed_noscat(pos, g, slots, scales, out, scratch, n, L, n_rows, blk,
 #                   stream)
 _PACKED_NOSCAT_ARGS = [_P] * 6 + [_I] * 4 + [_P]
@@ -163,6 +163,8 @@ def envelope_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.env_packed_work.argtypes = _PACKED_WORK_ARGS
     lib.env_packed_work.restype = ctypes.c_longlong
+    lib.env_packed_chunk.argtypes = []
+    lib.env_packed_chunk.restype = ctypes.c_int
     return lib
 
 

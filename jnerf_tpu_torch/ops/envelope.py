@@ -43,11 +43,6 @@ K4_MODES = {"v2d": 0, "novals": 1, "noscat": 2}
 # probe_bwd_var.py's BLK: noscat adds the first sample of each block.
 NOSCAT_BLK = 8192
 LANES = 128  # a packed row: 8 slots x 8 corners x 2 features
-# K4's bins: packed rows a tile, 64 or 128 (None: `k4_tile_rows` chooses
-# by mode, as csrc/envelope.cu's note says why), and samples of one level
-# a bin block sorts (a multiple of 256, at most 2048).
-K4_TILE_ROWS = None
-K4_BIN_CHUNK = 2048
 SIZE_LIMIT = 1 << 31  # the kernels index with 32-bit integers
 
 _ROW_GATHER = Launch(envelope_lib, "env_row_gather")
@@ -59,12 +54,11 @@ _PACKED_NOSCAT = Launch(envelope_lib, "env_packed_noscat")
 
 
 def k4_tile_rows(n_acc: int, mode: str) -> int:
-    """K4's tile height: K4_TILE_ROWS if set, else 64 rows for v2d with
-    one accumulator (the sums held in registers: three blocks an SM) and
-    128 for alt2 (twice the tiles a level, so twice the bin pass's tile
-    tables at 64) and novals (integer counts, no sums held)."""
-    if K4_TILE_ROWS:
-        return K4_TILE_ROWS
+    """K4's tile height in packed rows: 64 for v2d with one accumulator
+    (the sums held in registers: three blocks an SM) and 128 for alt2
+    (twice the tiles a level, so twice the bin pass's tile tables at 64)
+    and novals (integer counts, no sums held); csrc/envelope.cu's note
+    says why."""
     return 64 if mode == "v2d" and n_acc == 1 else 128
 
 
@@ -212,14 +206,9 @@ def elem_gather(src: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor
     dev = src.get_device()
     if dev < 0:
         return elem_gather_plain(src, idx, mode)
-    if idx.get_device() != dev:
-        raise ValueError(f"elem_gather: tensors on {src.device} and "
-                         f"{idx.device}")
-    if not (src.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("elem_gather takes contiguous tensors")
+    _cuda_check("elem_gather", dev, src, idx)
     n = idx.numel()
-    if n >= SIZE_LIMIT or size >= SIZE_LIMIT:
-        raise ValueError(f"elem_gather: a size reaches 2^31 ({n}, {size})")
+    _check_sizes("elem_gather", n, size)
     out = torch.empty_like(idx, dtype=torch.float32)
     if code:
         _ELEM_GATHER(dev, src.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
@@ -424,7 +413,7 @@ def _k4_bins(dev, pos, g, rows, slots, scales, n_rows, n_acc, mode):
     _check_sizes("packed_hash_scatter", 16 * L * n, L * n_acc * n_rows * LANES)
     tile_rows = k4_tile_rows(n_acc, mode)
     ints = envelope_lib().env_packed_work(n, L, n_rows, n_acc, K4_MODES[mode],
-                                          tile_rows, K4_BIN_CHUNK)
+                                          tile_rows)
     if ints < 0:
         raise ValueError(f"packed_hash_scatter: K4 does not take {L} levels "
                          f"of {n_rows} rows at N={n} (too many tiles)")
@@ -435,7 +424,7 @@ def _k4_bins(dev, pos, g, rows, slots, scales, n_rows, n_acc, mode):
     _PACKED_BINS(dev, pos.data_ptr(), g.data_ptr(), rows.data_ptr(),
                  slots.data_ptr(), scales.ctypes.data, work.data_ptr(),
                  None if recA is None else recA.data_ptr(), recB.data_ptr(),
-                 n, L, n_rows, n_acc, K4_MODES[mode], tile_rows, K4_BIN_CHUNK)
+                 n, L, n_rows, n_acc, K4_MODES[mode], tile_rows)
     return work, recA, recB
 
 
@@ -460,7 +449,7 @@ def packed_hash_bins(pos, g, rows, slots, scales, n_rows, n_acc=1,
     work, recA, recB = _k4_bins(dev, pos, g, rows, slots, scales, n_rows,
                                 n_acc, mode)
     n_tiles = rows.shape[0] * n_acc * -(-n_rows // k4_tile_rows(n_acc, mode))
-    n_chunks = -(-n // K4_BIN_CHUNK)
+    n_chunks = -(-n // envelope_lib().env_packed_chunk())
     tile_start = work[:n_tiles * n_chunks + 1:n_chunks]
     m = int(tile_start[-1])
     return tile_start, None if recA is None else recA[:m], recB[:m]
@@ -509,7 +498,7 @@ def packed_hash_scatter(pos: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
         _PACKED_ACC(dev, work.data_ptr(),
                     None if recA is None else recA.data_ptr(),
                     recB.data_ptr(), out.data_ptr(), n, L, n_rows, n_acc,
-                    K4_MODES[mode], k4_tile_rows(n_acc, mode), K4_BIN_CHUNK)
+                    K4_MODES[mode], k4_tile_rows(n_acc, mode))
     packed_hash_scatter.launches += 1
     return out
 

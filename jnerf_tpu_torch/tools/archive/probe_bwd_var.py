@@ -2,7 +2,7 @@
 shapes: the counterpart of `tools/archive/probe_bwd_var.py`.
 
     python3 -m jnerf_tpu_torch.tools.archive.probe_bwd_var [noscat novals v2d alt2 v3d]
-        [--tile-rows 64,128] [--split] [--cpu]
+        [--split] [--cpu]
 
 At 16 levels of 2 features, ``log2_hashmap_size`` 19 and a 2^18-entry
 level cap (ROWS = 32768 packed rows of 8 entries a level), N = 2^18
@@ -10,13 +10,13 @@ uniform samples and g ~ 0.01 N(0, 1) (numpy, seed 0): the archive's
 ``make`` (``pallas_call`` at ``:101``, contributions from ``vals_phase``
 ``:40``) is K4 (`ops/envelope.py::packed_hash_scatter`) in its variants
 ``v2d``, ``alt2`` (two accumulators), ``novals`` (ones) and ``noscat``
-(the contribution pass without the scatter).  Each (level, sample)'s row
+(the contribution pass without the scatter), at the tile height
+``envelope.k4_tile_rows`` chooses for each.  Each (level, sample)'s row
 and slot come from the port's own hash (``packed_rows_slots``).  ``v3d``
 (the archive's library path) is the port's kernel B
-(``hash_nbr.grad_table``) on the same samples.  ``--tile-rows`` times
-K4 at each of the given tile heights (``envelope.K4_TILE_ROWS``: 64 or
-128; by default ``envelope.k4_tile_rows`` chooses by mode); ``--split`` prints each K4 variant's kernels, device µs a call (the
-profiler's sums over 10 calls; on the card only).
+(``hash_nbr.grad_table``) on the same samples.  ``--split`` prints each
+K4 variant's kernels, device µs a call (the profiler's sums over 10
+calls; on the card only).
 """
 
 from __future__ import annotations
@@ -91,8 +91,6 @@ def main(argv=None):
     ap.add_argument("variants", nargs="*", metavar="variant",
                     help=f"any of {', '.join(VARIANTS)} (all but v3d by "
                     "default)")
-    ap.add_argument("--tile-rows", help="comma-separated tile heights of "
-                    "K4's bins (64, 128); the wrapper's own by default")
     ap.add_argument("--split", action="store_true",
                     help="print each K4 variant's kernels' device time")
     ap.add_argument("--cpu", action="store_true")
@@ -102,51 +100,39 @@ def main(argv=None):
     from jnerf_tpu_torch.ops import envelope, hash_nbr
     from jnerf_tpu_torch.ops.hash_grid import HashGridSpec
 
-    default_rows = envelope.K4_TILE_ROWS
-    tiles = [default_rows]
-    if args.tile_rows:
-        tiles = [int(x) for x in args.tile_rows.split(",")]
-        if set(tiles) - {64, 128}:
-            ap.error("--tile-rows takes 64 and 128")
-
     p = common.start(args.cpu, "probe_bwd_var")
     spec = HashGridSpec(**SPEC)
     L, n_rows = spec.n_levels, max(spec.level_sizes) // 8
     scales = np.asarray(spec.scales, np.float32)
     pos, g, rows, slots = inputs(p, spec)
-    try:
-        for v in args.variants or VARIANTS[:4]:
-            if v == "v3d":
-                ms = p.time(lambda: hash_nbr.grad_table(spec, pos, g))
-                F = spec.n_features_per_level
-                p.emit(v, f"v3d (library): {ms:.1f} ms", ms, N * L,
-                       12 * N + 4 * F * L * N + 4 * F * spec.n_entries,
-                       "kernel B (hash_nbr.grad_table)")
-                continue
-            n_acc = 2 if v == "alt2" else 1
-            mode = "v2d" if v == "alt2" else v
-            for rows_a_tile in tiles if mode != "noscat" else tiles[:1]:
-                envelope.K4_TILE_ROWS = rows_a_tile
+    for v in args.variants or VARIANTS[:4]:
+        if v == "v3d":
+            ms = p.time(lambda: hash_nbr.grad_table(spec, pos, g))
+            F = spec.n_features_per_level
+            p.emit(v, f"v3d (library): {ms:.1f} ms", ms, N * L,
+                   12 * N + 4 * F * L * N + 4 * F * spec.n_entries,
+                   "kernel B (hash_nbr.grad_table)")
+            continue
+        n_acc = 2 if v == "alt2" else 1
+        mode = "v2d" if v == "alt2" else v
 
-                def k4():
-                    return envelope.packed_hash_scatter(
-                        pos, g, rows, slots, scales, n_rows, n_acc, mode, BLK)
+        def k4():
+            return envelope.packed_hash_scatter(
+                pos, g, rows, slots, scales, n_rows, n_acc, mode, BLK)
 
-                ms = p.time(k4)
-                rows_a_tile = envelope.k4_tile_rows(n_acc, mode)
-                tile = (f", {rows_a_tile}-row tiles" if mode != "noscat"
-                        else "")
-                p.emit(v, f"{v}: {ms:.1f} ms ({ms * 1e6 / (N * L):.2f} ns/row)",
-                       ms, N * L, k4_bytes(L, N, n_rows, n_acc, mode),
-                       f"K4 ({mode}, {n_acc} accumulator{'s' * (n_acc > 1)}"
-                       f"{tile})", tile_rows=rows_a_tile)
-                if args.split:
-                    split = kernel_split(k4, p.device)
-                    p.lines[-1]["split_us"] = split
-                    print("  kernels, device us a call: " + ", ".join(
-                        f"{k} {x:.1f}" for k, x in split.items()), flush=True)
-    finally:
-        envelope.K4_TILE_ROWS = default_rows
+        ms = p.time(k4)
+        tile_rows = (None if mode == "noscat" else
+                     envelope.k4_tile_rows(n_acc, mode))
+        tile = f", {tile_rows}-row tiles" if tile_rows else ""
+        p.emit(v, f"{v}: {ms:.1f} ms ({ms * 1e6 / (N * L):.2f} ns/row)", ms,
+               N * L, k4_bytes(L, N, n_rows, n_acc, mode),
+               f"K4 ({mode}, {n_acc} accumulator{'s' * (n_acc > 1)}{tile})",
+               tile_rows=tile_rows)
+        if args.split:
+            split = kernel_split(k4, p.device)
+            p.lines[-1]["split_us"] = split
+            print("  kernels, device us a call: " + ", ".join(
+                f"{k} {x:.1f}" for k, x in split.items()), flush=True)
     return p.lines
 
 

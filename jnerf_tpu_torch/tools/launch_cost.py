@@ -1,32 +1,22 @@
-"""Host cost of an envelope kernel's launch, step by step, at
-probe_round2's lane gather (K2, ``take_along_axis`` on axis 1 of an
-[8192, 128] f32 array, int32 indices in [0, 128)).
+"""Host cost of an envelope kernel's launch at probe_round2's lane gather
+(K2, ``take_along_axis`` on axis 1 of an [8192, 128] f32 array, int32
+indices in [0, 128)), beside ``torch.gather`` on the same inputs.
 
     python3 -m jnerf_tpu_torch.tools.launch_cost [--calls 10000] [--out PATH]
 
-It times, each alone over ``--calls`` calls on the host clock, the steps
-a wrapper can take around its ctypes call: the shape, device, size and
-contiguity checks as the first envelope wrappers wrote them (a loop over
-the tensors reading ``.device``, a generator over the sizes), a
-function-level import, ``torch.empty`` and ``torch.empty_like``, the
-library's ``lru_cache`` and attribute lookup, a ``torch.cuda.device``
-context, ``torch.cuda.current_stream(...).cuda_stream`` and the raw
-stream read, the ctypes call with no launch (N = 0) and with its launch,
-``cuda_lib.Launch`` (where the tree has it) and ``elem_gather`` with no
-launch; then ``elem_gather`` and ``torch.gather`` whole: host µs a call (no
-synchronize inside the loop), wall ms a call between CUDA events over
-back-to-back calls (gather, K2, K2, gather) and device ms a call (the
-profiler's sum of kernel times).  It measures whichever
-``jnerf_tpu_torch`` is first on the path, so the same file times another
-tree's wrapper (``PYTHONPATH=<tree> python3 <this file>``).  Runs on the
-card only.
+It times ``elem_gather`` and ``torch.gather`` whole: host µs a call over
+``--calls`` calls (no synchronize inside the loop), wall ms a call between
+CUDA events over back-to-back calls (gather, K2, K2, gather) and device ms
+a call (the profiler's sum of kernel times); and, each alone, the steps
+of the launch path (``cuda_lib.Launch``) that it cannot drop: the ctypes
+call with its launch, ``torch.empty_like``, the ``Launch`` call and
+``elem_gather`` with no launch (N = 0).  Runs on the card only.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
@@ -34,119 +24,28 @@ import torch
 SHAPE = (8192, 128)
 
 
-def host_us(fn, calls: int) -> float:
-    """Host µs a call of ``fn`` over ``calls`` calls after 100 warm-up
-    calls; the card is synchronized before and after, outside the clock."""
-    for _ in range(100):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return t * 1e6 / calls
-
-
-def wall_ms(fn, iters: int = 200) -> float:
-    """ms a call between CUDA events over ``iters`` back-to-back calls,
-    after a warm-up: the device time, or the host's when it is longer."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    for _ in range(iters):
-        fn()
-    ev[1].record()
-    ev[1].synchronize()
-    return ev[0].elapsed_time(ev[1]) / iters
-
-
-def steps(src, idx, calls):
-    """{step: host µs a call} of each step alone."""
+def floor_steps(src, idx, calls):
+    """{step: host µs a call} of each step of the lean launch path alone."""
     from jnerf_tpu_torch.ops import cuda_lib
     from jnerf_tpu_torch.ops.envelope import elem_gather
+    from jnerf_tpu_torch.tools.tool_util import host_us
 
-    dev = src.device
-    empty = idx[:, :0]
-    modes = {"flat": 0, "axis0": 1, "axis1": 2}
-    lib_fn = cuda_lib.envelope_lib().env_elem_gather
-    out = torch.empty(SHAPE, dtype=torch.float32, device=dev)
-    ptrs = (src.data_ptr(), idx.data_ptr(), out.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def shape_checks():
-        if idx.dtype != torch.int32 or src.dtype != torch.float32 \
-                or src.numel() < 1 or "axis1" not in modes:
-            raise ValueError
-        if src.dim() != 2 or idx.dim() != 2 or src.shape[0] != idx.shape[0]:
-            raise ValueError
-
-    def device_checks_loop():
-        d = src.device
-        for t in (src, idx):
-            if t.device != d or not t.is_contiguous():
-                raise ValueError
-
-    def device_checks_index():
-        d = src.get_device()
-        if idx.get_device() != d or not (src.is_contiguous()
-                                         and idx.is_contiguous()):
-            raise ValueError
-
-    def size_checks():
-        if any(c >= 1 << 31 for c in (idx.numel(), src.numel())):
-            raise ValueError
-
-    def local_import():
-        from jnerf_tpu_torch.ops.cuda_lib import check, envelope_lib  # noqa
-
-    def device_context():
-        with torch.cuda.device(dev):
-            pass
-
-    def counter():
-        cuda_lib.check(0, "env_elem_gather")
-        steps.count += 1
-
-    steps.count = 0
+    out = torch.empty(SHAPE, dtype=torch.float32, device=src.device)
+    args = (src.data_ptr(), idx.data_ptr(), out.data_ptr())
+    fn = cuda_lib.envelope_lib().env_elem_gather
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    launch = cuda_lib.Launch(cuda_lib.envelope_lib, "env_elem_gather")
     table = {
-        "shape and type checks": shape_checks,
-        "device and contiguity checks, a loop over .device": device_checks_loop,
-        "device and contiguity checks, get_device()": device_checks_index,
-        "size checks, a generator": size_checks,
-        "function-level import": local_import,
-        "torch.empty(shape, dtype, device)":
-            lambda: torch.empty(idx.shape, dtype=torch.float32, device=dev),
+        "ctypes call with its launch":
+            lambda: fn(*args, idx.numel(), 2, 128, *SHAPE, stream),
         "torch.empty_like(idx, dtype)":
             lambda: torch.empty_like(idx, dtype=torch.float32),
-        "envelope_lib() and the attribute":
-            lambda: cuda_lib.envelope_lib().env_elem_gather,
-        "torch.cuda.device context": device_context,
-        "torch.cuda.current_device()": torch.cuda.current_device,
-        "torch.cuda.current_stream(dev).cuda_stream":
-            lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "raw stream read (torch._C._cuda_getCurrentRawStream)":
-            lambda: torch._C._cuda_getCurrentRawStream(0),
-        "ctypes call, N = 0 (no launch)":
-            lambda: lib_fn(*ptrs, 0, 2, 128, SHAPE[0], SHAPE[1], stream),
-        "ctypes call with its launch":
-            lambda: lib_fn(*ptrs, idx.numel(), 2, 128, SHAPE[0], SHAPE[1],
-                           stream),
-        "status check and counter": counter,
-        "tensor.data_ptr() x 3":
-            lambda: (src.data_ptr(), idx.data_ptr(), out.data_ptr()),
+        "cuda_lib.Launch call, N = 0 (no launch)":
+            lambda: launch(src.get_device(), *args, 0, 2, 128, *SHAPE),
         "elem_gather whole, N = 0 (no launch)":
-            lambda: elem_gather(src, empty, "axis1"),
+            lambda: elem_gather(src, idx[:, :0], "axis1"),
     }
-    if hasattr(cuda_lib, "Launch"):
-        launch = cuda_lib.Launch(cuda_lib.envelope_lib, "env_elem_gather")
-        table["cuda_lib.Launch call, N = 0 (no launch)"] = \
-            lambda: launch(0, *ptrs, 0, 2, 128, SHAPE[0], SHAPE[1])
-        table["cuda_lib.Launch call with its launch"] = \
-            lambda: launch(0, *ptrs, idx.numel(), 2, 128, SHAPE[0], SHAPE[1])
-    return {name: host_us(fn, calls) for name, fn in table.items()}
+    return {name: host_us(f, calls) for name, f in table.items()}
 
 
 def main(argv=None):
@@ -155,7 +54,9 @@ def main(argv=None):
     ap.add_argument("--out", help="write the JSON result here too")
     args = ap.parse_args(argv)
     from jnerf_tpu_torch.ops.envelope import elem_gather
-    from jnerf_tpu_torch.tools.tool_util import card, device_for, kernel_time
+    from jnerf_tpu_torch.tools.tool_util import (card, device_for, host_us,
+                                                 kernel_time, timed,
+                                                 write_atomic)
 
     dev = device_for(False, "launch_cost")
     print(f"card: {card(dev)}", flush=True)
@@ -168,7 +69,7 @@ def main(argv=None):
                        torch.gather(src, 1, idx64)):
         raise SystemExit("elem_gather differs from torch.gather")
     res = {"card": card(dev), "shape": list(SHAPE), "calls": args.calls,
-           "steps_us": steps(src, idx, args.calls)}
+           "steps_us": floor_steps(src, idx, args.calls)}
     for name, us in res["steps_us"].items():
         print(f"  {name}: {us:.3f} us a call", flush=True)
 
@@ -180,7 +81,7 @@ def main(argv=None):
 
     res["host_us"] = {"elem_gather": host_us(k2, args.calls),
                       "torch.gather": host_us(lib, args.calls)}
-    four = [wall_ms(f) for f in (lib, k2, k2, lib)]
+    four = [timed(f, 200, dev)[1] for f in (lib, k2, k2, lib)]
     res["wall_ms"] = {"elem_gather": (four[1] + four[2]) / 2,
                       "torch.gather": (four[0] + four[3]) / 2, "four": four}
     res["device_ms"] = {"elem_gather": kernel_time(k2, 50, dev)[0],
@@ -190,10 +91,7 @@ def main(argv=None):
                                      res[key].items() if k != "four"),
               flush=True)
     if args.out:
-        from pathlib import Path
-
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(res, indent=1) + "\n")
+        write_atomic(args.out, json.dumps(res, indent=1) + "\n")
     print(json.dumps(res), flush=True)
     return res
 

@@ -106,6 +106,22 @@ def timed(fn, reps: int, device: torch.device):
                   else None)
 
 
+def host_us(fn, calls: int) -> float:
+    """Host µs a call of ``fn`` on the card over ``calls`` calls after 100
+    warm-up calls, with no synchronize inside the loop: the launch path's
+    own cost while the card keeps up.  The card is synchronized before and
+    after, outside the clock."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e6 / calls
+
+
 def kernel_time(fn, reps: int, device: torch.device):
     """(kernel ms a rep, kernel launches a rep) of ``reps`` runs of ``fn``
     under ``torch.profiler``: the sum of the CUDA kernels' own times, so

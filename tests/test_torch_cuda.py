@@ -553,6 +553,47 @@ def test_packed_hash_scatter_is_its_twin_bit_for_bit(dev, variant, n, n_rows):
     assert torch.equal(got.cpu(), envelope.packed_hash_scatter_plain(*cpu))
 
 
+@pytest.mark.parametrize("n,n_rows", [(RAGGED, 32768 - 40), (37, 3)])
+@pytest.mark.parametrize("variant", ["v2d", "alt2", "novals"])
+def test_packed_hash_scatter_writes_inside_its_buffers(dev, variant, n,
+                                                       n_rows):
+    """K4's two passes launched on buffers with guard zones on both sides
+    (the work space, recA, recB and the output): the guards stay as they
+    were and the output equals the twin, at a ragged N and at rows that
+    are no multiple of a tile (and fewer than one)."""
+    pos, g, rows, slots, scales = _k4_inputs(dev, n, seed=1)
+    n_acc, mode = (2, "v2d") if variant == "alt2" else (1, variant)
+    L, code = rows.shape[0], envelope.K4_MODES[mode]
+    tile_rows = envelope.k4_tile_rows(n_acc, mode)
+    pad, bufs = 4096, []
+
+    def guarded(size, dtype):
+        buf = torch.full((size + 2 * pad,), -7, dtype=dtype, device=dev)
+        bufs.append(buf)
+        return buf[pad:pad + size]
+
+    work = guarded(envelope.envelope_lib().env_packed_work(
+        n, L, n_rows, n_acc, code, tile_rows), torch.int32)
+    recA = guarded(L * n * 4, torch.float32)
+    recB = guarded(L * n * 2, torch.int32)
+    out = guarded(L * n_acc * n_rows * 128, torch.float32)
+    a_ptr = None if mode == "novals" else recA.data_ptr()
+    envelope._PACKED_BINS(
+        pos.get_device(), pos.data_ptr(), g.data_ptr(), rows.data_ptr(), slots.data_ptr(),
+        scales.ctypes.data, work.data_ptr(), a_ptr, recB.data_ptr(), n, L,
+        n_rows, n_acc, code, tile_rows)
+    envelope._PACKED_ACC(pos.get_device(), work.data_ptr(), a_ptr,
+                         recB.data_ptr(), out.data_ptr(), n, L, n_rows, n_acc,
+                         code, tile_rows)
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert bool((buf[:pad] == -7).all() and (buf[-pad:] == -7).all())
+    assert torch.equal(out.view(-1, 128).cpu(),
+                       envelope.packed_hash_scatter_plain(
+                           pos.cpu(), g.cpu(), rows.cpu(), slots.cpu(), scales,
+                           n_rows, n_acc, mode))
+
+
 @pytest.mark.parametrize("variant", ["v2d", "alt2", "novals"])
 def test_packed_hash_bins_are_the_plain_plan(dev, variant):
     """K4's bin pass: each tile's first position and every record (the

@@ -573,19 +573,18 @@ def test_probe_round2_card_shapes(tiny):
 
 
 def test_probe_bwd_var_tile_heights(tiny):
-    """--tile-rows times K4 at each tile height (noscat, which has no
-    tiles, once) and puts the wrapper's own back; --split adds no kernel
-    times on the CPU."""
+    """Each K4 line names the tile height the wrapper chose for its mode
+    (64 rows for v2d, 128 for alt2 and novals; noscat has no tiles);
+    --split adds no kernel times on the CPU."""
     lines = tiny("probe_bwd_var").main(
-        ["novals", "noscat", "--tile-rows", "64,128", "--split", "--cpu"])
+        ["novals", "noscat", "v2d", "alt2", "--split", "--cpu"])
     assert [(ln["name"], ln["tile_rows"]) for ln in lines] == [
-        ("novals", 64), ("novals", 128), ("noscat", 64)]
+        ("novals", 128), ("noscat", None), ("v2d", 64), ("alt2", 128)]
     assert all(ln["split_us"] == {} for ln in lines)
-    assert E.K4_TILE_ROWS is None
     assert [E.k4_tile_rows(1, "v2d"), E.k4_tile_rows(2, "v2d"),
             E.k4_tile_rows(1, "novals")] == [64, 128, 128]
     with pytest.raises(SystemExit):
-        _module("probe_bwd_var").main(["--cpu", "--tile-rows", "256"])
+        _module("probe_bwd_var").main(["--cpu", "--tile-rows", "64"])
 
 
 @pytest.mark.parametrize("name", sorted(TINY))
