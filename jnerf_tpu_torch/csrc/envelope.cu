@@ -15,16 +15,19 @@
 // K2 element gather: a flat take, take_along_axis on axis 0 or axis 1.
 //   Replaces probe_tpu.py:72 over k_flat and k_lane, probe_tpu2.py:93 over
 //   k_tala0 and k_tala1, probe_round2.py:240 (k_lane).
-// K3 row scatter-add: out[idx[n]] += vals[n] into a zeroed [n_rows, W] f32.
+// K3 row scatter-add: out[idx[n]] += vals[n], out [n_rows, W] f32.
 //   Replaces probe_rmw.py:74 (make_kernel), probe_scatter.py:72
 //   (mk_scatter), probe_scatter2.py:55 (mk_scatter_k), probe_loop.py:100
 //   (mk_scatter), probe_final.py:77 (sec_pallas_scatter.k_fn),
 //   probe_round2.py:212 (k_scat).  The TPU kernels carry a VMEM
 //   accumulator across an ordered grid and zero it at program 0; their
 //   slab, unroll and interleaved-accumulator variants cut the TPU's issued
-//   vector ops and compute one function.  Blocks here run in no order, so
-//   the wrapper zeroes the output and the kernel adds with one 16-byte
-//   atomicAdd(float4*) (sm_90, global memory) a 4-float chunk.
+//   vector ops and compute one function; they add in grid order.  Here the
+//   indices are sorted stably by row first (bins.cuh's radix sort on K4's
+//   bin pass, an index outside the rows sorted after every row, then each
+//   row's first position), and row_sum_kernel adds each row's sources in
+//   index order from +0.0 and writes the row once: the twin's index_add_
+//   order, with no zeroing and no float atomics.
 // K4 packed hash scatter: probe_bwd_var.py:101 (make, with vals_phase :40).
 //   For level l and sample n the 16 non-zero lanes of the packed row
 //   (lane = slot*16 + corner*2 + feature) are X*Y*Z*G, added into row
@@ -74,9 +77,9 @@
 // sector.  So the design keeps each access as wide as the row allows:
 // K1 moves 16 bytes a thread (int4), neighbouring threads on one row's
 // neighbouring chunks, so a row of 32 bytes or more is read by one
-// coalesced group.  K3 is paced by the L2's reduction units: one float4
-// atomic per 16 bytes, no aggregation of equal rows (that is kernel B's
-// design; here the raw atomic rate is the thing measured).  K4 moves its
+// coalesced group.  K3 reads each source row once, its row's threads
+// side by side (a 512-byte row is one warp's coalesced read), and moves
+// the sort's (key, index) pairs twice a pass.  K4 moves its
 // inputs twice (the rows and slots), the records twice and its output
 // once.  The arithmetic is a
 // few operations a byte at most.
@@ -88,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "bins.cuh"
 
 namespace {
 
@@ -190,17 +195,41 @@ elem_gather_kernel(const float* __restrict__ src, const int32_t* __restrict__ id
   }
 }
 
-// K3: one float4 atomic a thread; out is zeroed by the wrapper.
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// K3's sum: thread t takes 16-byte chunk t % chunks of output row t /
+// chunks, so that the threads of one row read a source row as one
+// coalesced span (a 512-byte row is one warp's read; a 16-byte row one
+// thread's).  It adds the row's sources, order[start[r]] ..
+// order[start[r + 1] - 1] (ascending source index), from +0.0 and writes
+// the chunk once; eight sources' loads are started before they are added.
 __global__ void __launch_bounds__(kThreads)
-row_scatter_add_kernel(const int32_t* __restrict__ idx,
-                       const float4* __restrict__ vals, float4* __restrict__ out,
-                       uint32_t total, uint32_t chunks, uint32_t n_rows) {
+row_sum_kernel(const int32_t* __restrict__ start,
+               const uint32_t* __restrict__ order,
+               const float4* __restrict__ vals, float4* __restrict__ out,
+               uint32_t total, uint32_t chunks) {
   for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < total;
        t += stride()) {
-    const uint32_t i = t / chunks, c = t - i * chunks;
-    const int32_t r = __ldg(idx + i);
-    if (r >= 0 && (uint32_t)r < n_rows)
-      atomicAdd(out + (size_t)r * chunks + c, __ldg(vals + t));
+    const uint32_t r = t / chunks, c = t - r * chunks;
+    int32_t j = __ldg(start + r);
+    const int32_t j1 = __ldg(start + r + 1);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (; j + 8 <= j1; j += 8) {
+      uint32_t n[8];
+      float4 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) n[k] = __ldg(order + j + k);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __ldg(vals + (size_t)n[k] * chunks + c);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc = add4(acc, v[k]);
+    }
+    for (; j < j1; ++j)
+      acc = add4(acc, __ldg(vals + (size_t)__ldg(order + j) * chunks + c));
+    out[t] = acc;
   }
 }
 
@@ -249,16 +278,10 @@ struct BinGeom {
   int mode;  // 0: v2d, 1: novals
 };
 
-constexpr int kBinThreads = 256;
-constexpr int kBinWarps = kBinThreads / 32;
 constexpr int kChunk = 2048;  // samples a bin block, 8 a thread
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;  // a scan block covers 4096 counts
-constexpr int kScanSpan = kScanThreads * kScanItems;
 constexpr int kAccThreads = 256;
 constexpr int kAccWarps = kAccThreads / 32;
 constexpr int kAccBatch = 2048;  // records staged at a time, 8 a thread
-constexpr int kSmemMax = 232448;  // 227 KB: a block's dynamic shared memory
 
 // The entry's tile within its level, or -1 for an entry K4 drops (a row
 // outside the level; in v2d also a slot outside 0-7).
@@ -271,257 +294,67 @@ __device__ __forceinline__ int bin_of(const BinGeom& G, uint32_t s, int32_t r,
                ((uint32_t)r >> G.tile_shift));
 }
 
-// Exclusive scan of one value a thread over a block of NT threads;
-// *total (if given) gets the block's sum.  Ends in a barrier, so ws (NT /
-// 32 ints of shared memory) can be used again at once.
-template <int NT>
-__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
-                                                        int32_t* ws,
-                                                        int32_t* total) {
-  const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= (uint32_t)o) x += y;
-  }
-  if (lane == 31) ws[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t w = lane < (uint32_t)(NT / 32) ? ws[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= (uint32_t)o) w += y;
-    }
-    if (lane < (uint32_t)(NT / 32)) ws[lane] = w;
-  }
-  __syncthreads();
-  const int32_t ex = (warp ? ws[warp - 1] : 0) + x - v;
-  if (total) *total = ws[NT / 32 - 1];
-  __syncthreads();
-  return ex;
-}
+// K4's bins on the shared bin pass (bins.cuh): an item is a (level l,
+// sample s) entry, its bin the tile of bin_of; a thread fetches its
+// entries' rows and slots before it bins one, and (v2d) loads their pos
+// and g only once they are ranked.  Blocks are numbered chunk * L + level, so the L blocks
+// of one chunk run together and share its pos and g rows in the L2.  A
+// record: recA (f_x, f_y, f_z, g0), recB (g1's bits, row-in-tile * 8 +
+// slot); in novals recB only, (0, row-in-tile * 8).  Staged as two arrays,
+// [kChunk] float4 then [kChunk] uint2.
+struct K4Bins {
+  static constexpr int kItems = kChunk / jn_bins::kBinThreads;
+  static constexpr int kStageBytes = 16 + 8;
+  struct Item {
+    int32_t r, slot;
+    float p[3], g0, g1;
+  };
+  const float* pos;
+  const float* g;
+  const int32_t* rows;
+  const int32_t* slots;
+  Scales sc;
+  BinGeom G;
+  float4* recA;
+  uint2* recB;
 
-// Bin pass 1: each (level, chunk) block's entries a tile, counted in
-// shared memory; a thread loads its 8 entries' rows and slots before it
-// counts.  Blocks are numbered chunk * L + level, so the L blocks of one
-// chunk run together and share its pos and g rows in the L2.
-__global__ void __launch_bounds__(kBinThreads)
-packed_bin_count_kernel(const int32_t* __restrict__ rows,
-                        const int32_t* __restrict__ slots, BinGeom G,
-                        int32_t* __restrict__ counts) {
-  constexpr int kItems = kChunk / kBinThreads;
-  extern __shared__ int32_t hist[];  // [tiles_per_level]
-  const uint32_t l = blockIdx.x % G.L, c = blockIdx.x / G.L;
-  const uint32_t tpl = G.tiles_per_level;
-  const uint32_t s1 = min(G.n, (c + 1) * kChunk);
-  int32_t r[kItems], slot[kItems];
+  __device__ __forceinline__ void fetch(uint32_t l, uint32_t s,
+                                        Item& it) const {
+    const size_t t = (size_t)l * G.n + s;
+    it.r = __ldg(rows + t);
+    it.slot = G.mode == 0 ? __ldg(slots + t) : 0;
+  }
+  __device__ __forceinline__ int bin(uint32_t, uint32_t s, const Item& it) const {
+    return it.r < 0 ? -1 : bin_of(G, s, it.r, it.slot);
+  }
+  __device__ __forceinline__ void load(uint32_t l, uint32_t s, Item& it) const {
+    if (G.mode != 0) return;
+    const float* gs = g + (size_t)s * 2 * G.L + l;
 #pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    const uint32_t s = c * kChunk + it * kBinThreads + threadIdx.x;
-    r[it] = -1;
-    slot[it] = 0;
-    if (s < s1) {
-      const size_t t = (size_t)l * G.n + s;
-      r[it] = __ldg(rows + t);
-      if (G.mode == 0) slot[it] = __ldg(slots + t);
+    for (int d = 0; d < 3; ++d) it.p[d] = __ldg(pos + (size_t)s * 3 + d);
+    it.g0 = __ldg(gs);
+    it.g1 = __ldg(gs + G.L);
+  }
+  __device__ __forceinline__ void stage(float4* stA, int q, uint32_t l,
+                                        const Item& it) const {
+    uint2* stB = reinterpret_cast<uint2*>(stA + kChunk);
+    const uint32_t seg = ((uint32_t)it.r & (G.tile_rows - 1)) * 8;
+    if (G.mode == 0) {
+      const float scale = sc.s[l];
+      stA[q] = make_float4(fract_of(it.p[0], scale), fract_of(it.p[1], scale),
+                           fract_of(it.p[2], scale), it.g0);
+      stB[q] = make_uint2(__float_as_uint(it.g1), seg + (uint32_t)it.slot);
+    } else {
+      stB[q] = make_uint2(0u, seg);
     }
   }
-  for (uint32_t k = threadIdx.x; k < tpl; k += kBinThreads) hist[k] = 0;
-  __syncthreads();
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    if (r[it] < 0) continue;
-    const int key = bin_of(G, c * kChunk + it * kBinThreads + threadIdx.x,
-                           r[it], slot[it]);
-    if (key >= 0) atomicAdd(hist + key, 1);
+  __device__ __forceinline__ void write(const float4* stA, int i,
+                                        int32_t dst) const {
+    const uint2* stB = reinterpret_cast<const uint2*>(stA + kChunk);
+    if (G.mode == 0) recA[dst] = stA[i];
+    recB[dst] = stB[i];
   }
-  __syncthreads();
-  for (uint32_t k = threadIdx.x; k < tpl; k += kBinThreads)
-    counts[((size_t)l * tpl + k) * G.n_chunks + c] = hist[k];
-}
-
-// Bin pass 2, an exclusive scan of counts[0, m) in place (counts[m] gets
-// the total) in three kernels: each block's sum of kScanSpan counts, one
-// block's scan of those sums, then each block's counts rescanned from its
-// offset.
-__global__ void __launch_bounds__(kScanThreads)
-scan_reduce_kernel(const int32_t* __restrict__ counts, uint32_t m,
-                   int32_t* __restrict__ block_sums) {
-  __shared__ int32_t ws[kScanThreads / 32];
-  const size_t base = (size_t)blockIdx.x * kScanSpan;
-  int32_t v = 0;
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const size_t i = base + j * kScanThreads + threadIdx.x;
-    if (i < m) v += counts[i];
-  }
-  int32_t total;
-  block_exclusive_scan<kScanThreads>(v, ws, &total);
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-scan_top_kernel(int32_t* __restrict__ block_sums, uint32_t nb,
-                int32_t* __restrict__ total_out) {
-  __shared__ int32_t ws[kScanThreads / 32];
-  int32_t carry = 0;
-  for (uint32_t i0 = 0; i0 < nb; i0 += kScanThreads) {  // block-uniform
-    const uint32_t i = i0 + threadIdx.x;
-    int32_t total;
-    const int32_t ex = block_exclusive_scan<kScanThreads>(
-        i < nb ? block_sums[i] : 0, ws, &total);
-    if (i < nb) block_sums[i] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *total_out = carry;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-scan_down_kernel(int32_t* __restrict__ counts, uint32_t m,
-                 const int32_t* __restrict__ block_sums) {
-  __shared__ int32_t ws[kScanThreads / 32];
-  const size_t i0 = (size_t)blockIdx.x * kScanSpan +
-                    (size_t)threadIdx.x * kScanItems;
-  int32_t a[kScanItems], s = 0;
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    a[j] = i0 + j < m ? counts[i0 + j] : 0;
-    s += a[j];
-  }
-  int32_t ex = block_exclusive_scan<kScanThreads>(s, ws, nullptr) +
-               __ldg(block_sums + blockIdx.x);
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    if (i0 + j < m) counts[i0 + j] = ex;
-    ex += a[j];
-  }
-}
-
-// Bin pass 3: each entry's record written to its bin in sample order.  A
-// block sorts its chunk by tile in shared memory first (stably: each warp
-// walks its 8 groups of 32 consecutive samples in order, the rank within
-// a group from __match_any_sync, the groups before it from the warp's
-// running counts; then the warps before it, then the tiles before), and
-// writes each tile's records as one run at the tile's position for the
-// chunk, so that the stores coalesce.  A thread starts all its loads of a
-// phase before it uses one.  A record: recA (f_x, f_y, f_z, g0), recB
-// (g1's bits, row-in-tile * 8 + slot); in novals recB only, (0,
-// row-in-tile * 8).
-__global__ void __launch_bounds__(kBinThreads)
-packed_bin_scatter_kernel(const float* __restrict__ pos,
-                          const float* __restrict__ g,
-                          const int32_t* __restrict__ rows,
-                          const int32_t* __restrict__ slots, Scales sc,
-                          BinGeom G, const int32_t* __restrict__ offsets,
-                          float4* __restrict__ recA, uint2* __restrict__ recB) {
-  constexpr int kItems = kChunk / kBinThreads;  // groups of 32 a warp
-  extern __shared__ float4 smem4[];
-  __shared__ int32_t ws[kBinWarps];
-  const uint32_t tpl = G.tiles_per_level;
-  float4* stA = smem4;                                       // [kChunk]
-  uint2* stB = reinterpret_cast<uint2*>(stA + kChunk);       // [kChunk]
-  int32_t* wcnt = reinterpret_cast<int32_t*>(stB + kChunk);  // [warps][tpl]
-  int32_t* lstart = wcnt + kBinWarps * tpl;                  // [tpl]
-  int32_t* gbase = lstart + tpl;                             // [tpl]
-  uint16_t* skey = reinterpret_cast<uint16_t*>(gbase + tpl);  // [kChunk]
-  const uint32_t l = blockIdx.x % G.L, c = blockIdx.x / G.L;
-  const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (uint32_t k = threadIdx.x; k < tpl; k += kBinThreads) {
-    gbase[k] = __ldg(offsets + ((size_t)l * tpl + k) * G.n_chunks + c);
-    for (int w = 0; w < kBinWarps; ++w) wcnt[w * tpl + k] = 0;
-  }
-  const uint32_t s_warp = c * kChunk + warp * kItems * 32 + lane;
-  int32_t r[kItems], slot[kItems];
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    const uint32_t s = s_warp + it * 32;
-    r[it] = -1;
-    slot[it] = 0;
-    if (s < G.n) {
-      const size_t t = (size_t)l * G.n + s;
-      r[it] = __ldg(rows + t);
-      if (G.mode == 0) slot[it] = __ldg(slots + t);
-    }
-  }
-  __syncthreads();
-  int32_t* mine = wcnt + warp * tpl;
-  int key[kItems], rank[kItems];
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    key[it] = -1;
-    rank[it] = 0;
-    if (r[it] >= 0) key[it] = bin_of(G, s_warp + it * 32, r[it], slot[it]);
-    const uint32_t peers = __match_any_sync(0xffffffffu, key[it]);
-    const uint32_t before = peers & ((1u << lane) - 1);
-    if (key[it] >= 0) rank[it] = mine[key[it]] + __popc(before);
-    __syncwarp();
-    if (key[it] >= 0 && before == 0) mine[key[it]] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  for (uint32_t k = threadIdx.x; k < tpl; k += kBinThreads) {
-    int32_t run = 0;
-    for (int w = 0; w < kBinWarps; ++w) {
-      const int32_t n_w = wcnt[w * tpl + k];
-      wcnt[w * tpl + k] = run;
-      run += n_w;
-    }
-    lstart[k] = run;  // the tile's total, scanned below
-  }
-  __syncthreads();
-  int32_t kept = 0;
-  for (uint32_t k0 = 0; k0 < tpl; k0 += kBinThreads) {  // block-uniform
-    const uint32_t k = k0 + threadIdx.x;
-    int32_t total;
-    const int32_t ex = block_exclusive_scan<kBinThreads>(
-        k < tpl ? lstart[k] : 0, ws, &total);
-    if (k < tpl) lstart[k] = kept + ex;
-    kept += total;
-  }
-  __syncthreads();
-  if (G.mode == 0) {
-    const float scale = sc.s[l];
-    float p[kItems][3], g0[kItems], g1[kItems];
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      if (key[it] < 0) continue;
-      const uint32_t s = s_warp + it * 32;
-      const float* gs = g + (size_t)s * 2 * G.L + l;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) p[it][d] = __ldg(pos + (size_t)s * 3 + d);
-      g0[it] = __ldg(gs);
-      g1[it] = __ldg(gs + G.L);
-    }
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      if (key[it] < 0) continue;
-      const int q = lstart[key[it]] + mine[key[it]] + rank[it];
-      stA[q] = make_float4(fract_of(p[it][0], scale), fract_of(p[it][1], scale),
-                           fract_of(p[it][2], scale), g0[it]);
-      stB[q] = make_uint2(__float_as_uint(g1[it]),
-                          ((uint32_t)r[it] & (G.tile_rows - 1)) * 8 +
-                              (uint32_t)slot[it]);
-      skey[q] = (uint16_t)key[it];
-    }
-  } else {
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      if (key[it] < 0) continue;
-      const int q = lstart[key[it]] + mine[key[it]] + rank[it];
-      stB[q] = make_uint2(0u, ((uint32_t)r[it] & (G.tile_rows - 1)) * 8);
-      skey[q] = (uint16_t)key[it];
-    }
-  }
-  __syncthreads();
-  for (int32_t i = threadIdx.x; i < kept; i += kBinThreads) {
-    const int k = skey[i];
-    const int32_t q = gbase[k] + i - lstart[k];
-    if (G.mode == 0) recA[q] = stA[i];
-    recB[q] = stB[i];
-  }
-}
+};
 
 // The accumulate pass: one block a tile of T packed rows (8T slot
 // segments), its sums held in registers, thread t owning segments t, t +
@@ -623,7 +456,7 @@ packed_accumulate_kernel(const int32_t* __restrict__ offsets,
       tot[q] = run;
       sum += run;
     }
-    int32_t ex = block_exclusive_scan<kAccThreads>(sum, ws, nullptr);
+    int32_t ex = jn_bins::block_exclusive_scan<kAccThreads>(sum, ws, nullptr);
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       kst[threadIdx.x * kPer + q] = ex;
@@ -729,22 +562,20 @@ bool bin_geom(BinGeom* G, int n, int L, int n_rows, int n_acc, int mode,
          fits((int64_t)L * G->tiles_per_level, G->n_chunks + 1);
 }
 
+// K4's bin pass as the shared binning sees it: one list a level.
+jn_bins::BinShape bin_shape(const BinGeom& G) {
+  return jn_bins::BinShape{G.n, G.L, G.tiles_per_level, G.n_chunks};
+}
+
 // K4's int32 work space: the counts (and the scan's total), then the scan
 // blocks' sums.
 int64_t bin_work(const BinGeom& G, int64_t* m, int64_t* nb) {
-  *m = (int64_t)G.L * G.tiles_per_level * G.n_chunks;
-  *nb = (*m + kScanSpan - 1) / kScanSpan;
+  *m = jn_bins::bin_counts(bin_shape(G));
+  *nb = jn_bins::scan_blocks(*m);
   return *m + 1 + *nb;
 }
 
-// Dynamic shared memory above 48 KB needs the kernel's consent.
-int allow_smem(const void* kernel, size_t bytes) {
-  if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
+using jn_bins::allow_smem;
 
 size_t acc_smem(int tile_rows, int mode) {
   if (mode == 1) return (size_t)tile_rows * 4;
@@ -810,18 +641,59 @@ extern "C" int env_elem_gather(const void* src, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// K3.  vals [n, chunks * 4] f32 into out [n_rows, chunks * 4] f32, zeroed.
+// K3's int32 work space for n indices into n_rows rows: out[0] its size,
+// out[1] and out[2] where the row starts [n_rows + 1] and the sorted
+// source indices [n] lie in it; -1 if K3 does not take the sizes.
+extern "C" long long env_row_scatter_layout(int n, int n_rows,
+                                            long long* out) {
+  if (n < 1 || n_rows < 1 || n_rows == INT_MAX) return -1;
+  const jn_bins::RadixPlan R =
+      jn_bins::radix_plan((uint32_t)n, 1, jn_bins::bits_for((uint32_t)n_rows));
+  const int64_t m = n_rows, n4 = ((int64_t)n + 3) / 4 * 4;
+  const int64_t starts = (m + 1 + jn_bins::scan_blocks(m) + 3) / 4 * 4;
+  // kA, pA, kB, pB, the starts, the counts
+  out[1] = 4 * n4;
+  out[2] = (R.passes & 1) ? n4 : 3 * n4;
+  out[0] = 4 * n4 + starts + R.counts_ints;
+  return out[0] < (1LL << 31) ? out[0] : -1;
+}
+
+// K3.  vals [n, chunks * 4] f32 into out [n_rows, chunks * 4] f32: the
+// indices sorted stably by row (indices outside [0, n_rows) after every
+// row), then each row's sources summed in index order and the row written
+// once; work as env_row_scatter_layout gives it.  plan_only: the sort and
+// the row starts alone.
 extern "C" int env_row_scatter_add(const void* idx, const void* vals,
-                                   void* out, int n, int chunks, int n_rows,
-                                   void* stream) {
-  if (n <= 0) return 0;
-  if (chunks < 1 || n_rows < 1 || !fits(n, chunks) || !fits(n_rows, chunks))
+                                   void* out, void* work, int n, int chunks,
+                                   int n_rows, int plan_only, void* stream) {
+  long long lay[3];
+  if (chunks < 1 || !fits(n, chunks) || !fits(n_rows, chunks) ||
+      env_row_scatter_layout(n, n_rows, lay) < 0)
     return (int)cudaErrorInvalidValue;
-  const uint32_t total = (uint32_t)n * chunks;
-  row_scatter_add_kernel<<<blocks_for(total), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const float4*)vals, (float4*)out, total, chunks,
-      n_rows);
+  cudaStream_t st = (cudaStream_t)stream;
+  const jn_bins::RadixPlan R =
+      jn_bins::radix_plan((uint32_t)n, 1, jn_bins::bits_for((uint32_t)n_rows));
+  int32_t* w = (int32_t*)work;
+  const int64_t n4 = ((int64_t)n + 3) / 4 * 4;
+  uint32_t* kA = (uint32_t*)w;
+  int32_t* start = w + lay[1];
+  int32_t* counts =
+      start + (n_rows + 1 + jn_bins::scan_blocks(n_rows) + 3) / 4 * 4;
+  const uint32_t* keys;
+  const uint32_t* order;
+  int err = jn_bins::run_radix(R, (uint32_t)n, 1, (const uint32_t*)idx,
+                               (uint32_t)n_rows, kA, kA + n4, kA + 2 * n4,
+                               kA + 3 * n4, counts, st, &keys, &order);
+  if (err) return err;
+  jn_bins::KeyGroups G;
+  G.base[0] = 0;
+  G.size[0] = (uint32_t)n_rows;
+  jn_bins::key_starts(keys, (uint32_t)n, 1, G, n_rows, start, st);
+  if (!plan_only) {
+    const uint32_t total = (uint32_t)n_rows * chunks;
+    row_sum_kernel<<<blocks_for(total), kThreads, 0, st>>>(
+        start, order, (const float4*)vals, (float4*)out, total, chunks);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -856,27 +728,24 @@ extern "C" int env_packed_bins(const void* pos, const void* g,
   Scales sc;
   for (int l = 0; l < L; ++l) sc.s[l] = scales[l];
   cudaStream_t st = (cudaStream_t)stream;
-  int64_t m, nb;
-  bin_work(G, &m, &nb);
   int32_t* counts = (int32_t*)work;
+  const jn_bins::BinShape S = bin_shape(G);
+  const int64_t m = jn_bins::bin_counts(S);
+  const K4Bins p{(const float*)pos, (const float*)g,   (const int32_t*)rows,
+                 (const int32_t*)slots, sc,            G,
+                 (float4*)recA,         (uint2*)recB};
   const size_t hist = G.tiles_per_level * sizeof(int32_t);
-  const size_t scat =
-      (size_t)kChunk * (16 + 8 + 2) + (kBinWarps + 2) * hist;
-  int err = allow_smem((const void*)packed_bin_count_kernel, hist);
-  if (!err) err = allow_smem((const void*)packed_bin_scatter_kernel, scat);
+  const size_t scat = jn_bins::bin_scatter_smem<K4Bins>(S.n_bins);
+  int err = allow_smem((const void*)jn_bins::bin_count_kernel<K4Bins>, hist);
+  if (!err)
+    err = allow_smem((const void*)jn_bins::bin_scatter_kernel<K4Bins>, scat);
   if (err) return err;
   const int blocks = (int)(G.n_chunks * G.L);
-  packed_bin_count_kernel<<<blocks, kBinThreads, hist, st>>>(
-      (const int32_t*)rows, (const int32_t*)slots, G, counts);
-  scan_reduce_kernel<<<(int)nb, kScanThreads, 0, st>>>(counts, (uint32_t)m,
-                                                       counts + m + 1);
-  scan_top_kernel<<<1, kScanThreads, 0, st>>>(counts + m + 1, (uint32_t)nb,
-                                              counts + m);
-  scan_down_kernel<<<(int)nb, kScanThreads, 0, st>>>(counts, (uint32_t)m,
-                                                     counts + m + 1);
-  packed_bin_scatter_kernel<<<blocks, kBinThreads, scat, st>>>(
-      (const float*)pos, (const float*)g, (const int32_t*)rows,
-      (const int32_t*)slots, sc, G, counts, (float4*)recA, (uint2*)recB);
+  jn_bins::bin_count_kernel<K4Bins><<<blocks, jn_bins::kBinThreads, hist, st>>>(
+      p, S, counts);
+  jn_bins::launch_scan(counts, m, counts + m + 1, st);
+  jn_bins::bin_scatter_kernel<K4Bins>
+      <<<blocks, jn_bins::kBinThreads, scat, st>>>(p, S, counts);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so a build takes
 seconds.  Libraries go to ``build/jnerf_tpu_torch/`` under the checkout,
-named by a hash of the source, the flags and a prelude of definitions,
+named by a hash of the source, the headers it may include
+(``csrc/*.cuh``), the flags and a prelude of definitions,
 so an edited source rebuilds and an unchanged one loads at once.  The
 hash kernels' prelude defines the xor mode's hash (the config's
 ``hash_func``): each distinct string builds its own library once, and the
@@ -50,8 +51,9 @@ def build(name: str, prelude: str = "") -> Path:
     directory that includes the source.  The compiler's report
     (``-Xptxas -v``: registers, spills) is kept beside it as ``.log``."""
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         + prelude.encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
@@ -78,12 +80,17 @@ _I = ctypes.c_int
 # hash_encode_fwd(pos, table, out, e0_out, n, L, F, out_bf16, scales, mults,
 #                 sizes, masks, offsets, corner_offs, stream)
 _HASH_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
-# hash_encode_bwd(pos, g, grad, n, L, F, scales, mults, sizes, masks,
-#                 offsets, corner_offs, stream)
-_HASH_BWD_ARGS = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
-# hash_encode_xor_{fwd,bwd}(pos, table | g, out | grad, n, L, F, bf16,
-#                           scales, mults, sizes, offsets, hashed, stream)
+# hash_encode_bwd(pos, g, grad, work, n, L, F, scales, mults, sizes, masks,
+#                 offsets, corner_offs, plan_only, stream)
+_HASH_BWD_ARGS = [_P] * 4 + [_I] * 3 + [_P] * 6 + [_I, _P]
+# hash_encode_xor_fwd(pos, table, out, n, L, F, bf16, scales, mults, sizes,
+#                     offsets, hashed, stream)
 _HASH_XOR_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+# hash_encode_xor_bwd(pos, g, grad, work, n, L, F, bf16, scales, mults,
+#                     sizes, offsets, hashed, plan_only, stream)
+_HASH_XOR_BWD_ARGS = [_P] * 4 + [_I] * 4 + [_P] * 5 + [_I, _P]
+# hash_encode_bwd_layout(n, L, F, xor_mode, sizes, out[3]) -> int32s
+_HASH_BWD_LAYOUT_ARGS = [_I] * 4 + [_P, _P]
 
 
 def hash_prelude(hash_func: str = DEFAULT_HASH_FUNC) -> str:
@@ -101,9 +108,11 @@ def hash_encode_lib(hash_func: str = DEFAULT_HASH_FUNC) -> ctypes.CDLL:
     for fn, args in ((lib.hash_encode_fwd, _HASH_FWD_ARGS),
                      (lib.hash_encode_bwd, _HASH_BWD_ARGS),
                      (lib.hash_encode_xor_fwd, _HASH_XOR_ARGS),
-                     (lib.hash_encode_xor_bwd, _HASH_XOR_ARGS)):
+                     (lib.hash_encode_xor_bwd, _HASH_XOR_BWD_ARGS)):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.hash_encode_bwd_layout.argtypes = _HASH_BWD_LAYOUT_ARGS
+    lib.hash_encode_bwd_layout.restype = ctypes.c_longlong
     return lib
 
 
@@ -133,8 +142,11 @@ def fused_mlp_lib() -> ctypes.CDLL:
 _ROW_GATHER_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 # env_elem_gather(src, idx, out, n, mode, w, src_rows, src_w, stream)
 _ELEM_GATHER_ARGS = [_P] * 3 + [_I] * 5 + [_P]
-# env_row_scatter_add(idx, vals, out, n, chunks, n_rows, stream)
-_ROW_SCATTER_ARGS = [_P] * 3 + [_I] * 3 + [_P]
+# env_row_scatter_add(idx, vals, out, work, n, chunks, n_rows, plan_only,
+#                     stream)
+_ROW_SCATTER_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+# env_row_scatter_layout(n, n_rows, out[3]) -> int32s
+_ROW_SCATTER_LAYOUT_ARGS = [_I, _I, _P]
 # env_packed_work(n, L, n_rows, n_acc, mode, tile_rows) -> int32s
 _PACKED_WORK_ARGS = [_I] * 6
 # env_packed_bins(pos, g, rows, slots, scales, work, recA, recB, n, L,
@@ -163,6 +175,8 @@ def envelope_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.env_packed_work.argtypes = _PACKED_WORK_ARGS
     lib.env_packed_work.restype = ctypes.c_longlong
+    lib.env_row_scatter_layout.argtypes = _ROW_SCATTER_LAYOUT_ARGS
+    lib.env_row_scatter_layout.restype = ctypes.c_longlong
     lib.env_packed_chunk.argtypes = []
     lib.env_packed_chunk.restype = ctypes.c_int
     return lib

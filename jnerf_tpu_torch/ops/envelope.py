@@ -9,8 +9,11 @@ names every site each replaces and what bounds it):
   f32 row summed over its lanes;
 - **K2** ``elem_gather(src, idx, mode)``: a flat take, or
   ``take_along_axis`` on axis 0 or axis 1 (f32);
-- **K3** ``row_scatter_add(idx, vals, n_rows)``: ``out[idx[n]] += vals[n]``
-  into a zeroed [n_rows, W] f32 (W a multiple of 4);
+- **K3** ``row_scatter_add(idx, vals, n_rows)``: ``out[idx[n]] += vals[n]``,
+  [n_rows, W] f32 (W a multiple of 4): the indices sorted stably by row,
+  then each row's sources summed in index order and the row written once
+  (``row_scatter_plan``: the sort alone; ``row_scatter_plan_plain``: its
+  plain twin);
 - **K4** ``packed_hash_scatter(pos, g, rows, slots, scales, n_rows, ...)``:
   the packed hash-gradient scatter of ``probe_bwd_var.py`` (f2 levels, 128
   lanes a row: slot * 16 + corner * 2 + feature), binned by tile of rows
@@ -24,13 +27,16 @@ type.  An index outside its table gives a zero (gathers) or is dropped
 
 Each kernel has a plain PyTorch twin here (``*_plain``).  A wrapper runs
 its twin only for CPU tensors; for CUDA tensors it launches the kernel or
-raises, and counts the launch in ``.launches``.  K1, K2 and K4 (but
-noscat) equal their twins bit for bit; K3 and K4's noscat add with f32
-atomics, whose order varies from run to run.  The wrappers launch through
+raises, and counts the launch in ``.launches``.  K1-K4 (but K4's noscat)
+equal their twins bit for bit; noscat adds its few sums with f32 atomics,
+whose order varies from run to run.  The wrappers launch through
 `cuda_lib.Launch`, each check done once.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -235,31 +241,84 @@ def row_scatter_add_plain(idx, vals, n_rows, dtype=torch.float32):
     return out.index_add_(0, i[ok], vals[ok].to(dtype))
 
 
-def row_scatter_add(idx: torch.Tensor, vals: torch.Tensor,
-                    n_rows: int) -> torch.Tensor:
-    """K3: [n_rows, W] f32 with ``out[idx[n]] += vals[n]`` (f32 atomics;
-    the last bits vary with their order)."""
+def row_scatter_plan_plain(idx, n_rows):
+    """Plain twin of K3's sort: (start [n_rows + 1] int32, order [N]
+    int32): the source indices sorted stably by row, indices outside
+    [0, n_rows) after every row; start[r] the first position of row r,
+    start[n_rows] the number kept."""
+    i = idx.long()
+    ok = (i >= 0) & (i < n_rows)
+    key = torch.where(ok, i, torch.full_like(i, n_rows))
+    order = torch.sort(key, stable=True).indices
+    start = torch.zeros(n_rows + 1, dtype=torch.int64, device=idx.device)
+    start[1:] = torch.cumsum(torch.bincount(i[ok], minlength=n_rows), 0)
+    return start.to(torch.int32), order.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def row_scatter_layout(n: int, n_rows: int):
+    """K3's work space: (int32s, where the row starts lie in it, where
+    the sorted source indices lie in it)."""
+    out = (ctypes.c_longlong * 3)()
+    if envelope_lib().env_row_scatter_layout(n, n_rows, out) < 0:
+        raise ValueError(f"row_scatter_add: K3 does not take N={n} into "
+                         f"{n_rows} rows (a size reaches 2^31)")
+    return tuple(out)
+
+
+def _k3_args(idx, vals, n_rows):
     _check_idx(idx, 1)
     if vals.dtype != torch.float32 or vals.dim() != 2 \
             or vals.shape[0] != idx.shape[0] or vals.shape[1] % 4 \
             or vals.shape[1] == 0 or n_rows < 1:
         raise ValueError(f"K3 takes vals [N, 4k] f32 beside idx [N] and "
                          f"n_rows >= 1, got {tuple(vals.shape)} {vals.dtype}")
-    if vals.device.type == "cpu":
-        return row_scatter_add_plain(idx, vals, n_rows)
+
+
+def _k3(idx, vals, n_rows, plan_only):
+    """Launch K3 (plan_only: its sort alone): (out, work)."""
     dev = vals.get_device()
     _cuda_check("row_scatter_add", dev, idx, vectors=(vals,))
     _check_sizes("row_scatter_add", vals.numel() // 4, n_rows * vals.shape[1])
-    out = torch.zeros((n_rows, vals.shape[1]), dtype=torch.float32,
-                      device=vals.device)
+    work = torch.empty(row_scatter_layout(idx.shape[0], n_rows)[0],
+                       dtype=torch.int32, device=vals.device)
+    out = torch.empty((0 if plan_only else n_rows, vals.shape[1]),
+                      dtype=torch.float32, device=vals.device)
     _ROW_SCATTER(dev, idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                 idx.shape[0], vals.shape[1] // 4, n_rows)
-    if idx.shape[0]:
-        row_scatter_add.launches += 1
+                 work.data_ptr(), idx.shape[0], vals.shape[1] // 4, n_rows,
+                 int(plan_only))
+    return out, work
+
+
+def row_scatter_add(idx: torch.Tensor, vals: torch.Tensor,
+                    n_rows: int) -> torch.Tensor:
+    """K3: [n_rows, W] f32 with ``out[idx[n]] += vals[n]``, each row's
+    sources summed from +0.0 in index order, as the twin's ``index_add_``
+    adds them: equal to the twin bit for bit."""
+    _k3_args(idx, vals, n_rows)
+    if vals.device.type == "cpu":
+        return row_scatter_add_plain(idx, vals, n_rows)
+    if idx.shape[0] == 0:  # nothing to sum
+        return torch.zeros((n_rows, vals.shape[1]), dtype=torch.float32,
+                           device=vals.device)
+    out, _ = _k3(idx, vals, n_rows, False)
+    row_scatter_add.launches += 1
     return out
 
 
 row_scatter_add.launches = 0
+
+
+def row_scatter_plan(idx: torch.Tensor, vals: torch.Tensor, n_rows: int):
+    """K3's sort alone, as `row_scatter_plan_plain` returns it (on CPU
+    tensors, that twin).  Not counted."""
+    _k3_args(idx, vals, n_rows)
+    if vals.device.type == "cpu" or idx.shape[0] == 0:
+        return row_scatter_plan_plain(idx, n_rows)
+    _, at_start, at_order = row_scatter_layout(idx.shape[0], n_rows)
+    _, work = _k3(idx, vals, n_rows, True)
+    return (work[at_start:at_start + n_rows + 1],
+            work[at_order:at_order + idx.shape[0]])
 
 
 # ------------------------------------------------------------------- K4

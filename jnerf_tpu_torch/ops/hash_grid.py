@@ -34,6 +34,10 @@ import numpy as np
 import torch
 
 DEFAULT_HASH_FUNC = "p0 ^ p1 * 19349663 ^ p2 * 83492791"
+# Kernel B's piece (`csrc/hash_encode.cu`'s kPiece): a table-gradient row
+# sums its contributions in pieces cut at multiples of PIECE sorted
+# positions (`piece_plan`).
+PIECE = 32
 
 
 @dataclass(frozen=True)
@@ -335,11 +339,57 @@ def xor_contributions(spec: HashGridSpec, pos: torch.Tensor, g: torch.Tensor,
     return idx.reshape(-1).long(), vals.reshape(-1, F)
 
 
+def live_rows(spec: HashGridSpec, g: torch.Tensor) -> torch.Tensor:
+    """[N, L] bool: the (sample, level)s whose F upstream values are not
+    all zero.  The others (the compaction's empty slots) add exact zeros,
+    which leave an f32 sum's bits as they are, and kernel B leaves them
+    out of its sort."""
+    n, L, F = g.shape[0], spec.n_levels, spec.n_features_per_level
+    return (g.reshape(n, F, L) != 0).any(dim=1)
+
+
+def piece_plan(keys: torch.Tensor):
+    """Kernel B's pieces of one level: its M items (keys [M], in item
+    order) sorted stably by key, each run of one key cut where the sorted
+    position crosses a multiple of PIECE.  Returns (the sort, each
+    piece's key, each sorted item's piece), the pieces by key, then
+    position."""
+    m = keys.shape[0]
+    order = torch.sort(keys, stable=True).indices
+    n_pieces = -(-m // PIECE)
+    piece = keys[order] * n_pieces + torch.arange(m, device=keys.device) \
+        // PIECE
+    uniq, pid = torch.unique_consecutive(piece, return_inverse=True)
+    return order, uniq // n_pieces, pid
+
+
+def piece_sums(plan, vals: torch.Tensor) -> torch.Tensor:
+    """Each piece of ``plan`` (`piece_plan`) summed from +0.0 in sorted
+    order (``index_add_`` adds in index order): [n_pieces, F] f32 from
+    the items' vals [M, F] f32 in item order."""
+    order, keys, pid = plan
+    return torch.zeros((keys.shape[0], vals.shape[1]), dtype=torch.float32,
+                       device=vals.device).index_add_(0, pid, vals[order])
+
+
 def grad_table_xor_plain(spec: HashGridSpec, pos: torch.Tensor,
                          g: torch.Tensor, bf16: bool):
     """Plain twin of kernel B in xor mode: dL/dtable [n_entries, F] f32,
-    the contributions of `xor_contributions` summed in f32."""
+    the contributions of `xor_contributions` summed in f32: each level's
+    (sample, corner) items, sample-major (but those of `live_rows`' left-out
+    samples), sorted stably by entry and
+    summed in pieces (`piece_plan`), then each entry's pieces summed from
+    +0.0 in order."""
+    L, F = spec.n_levels, spec.n_features_per_level
+    n = pos.shape[0]
     idx, vals = xor_contributions(spec, pos, g, bf16)
-    grad = torch.zeros((spec.n_entries, spec.n_features_per_level),
-                       dtype=torch.float32, device=pos.device)
-    return grad.index_add_(0, idx, vals)
+    idx, vals = idx.reshape(n, L, 8), vals.reshape(n, L, 8, F)
+    live = live_rows(spec, g.float())
+    grad = torch.zeros((spec.n_entries, F), dtype=torch.float32,
+                       device=pos.device)
+    for lvl in range(L):
+        keep = live[:, lvl]
+        plan = piece_plan(idx[keep, lvl].reshape(-1))
+        grad.index_add_(0, plan[1],
+                        piece_sums(plan, vals[keep, lvl].reshape(-1, F)))
+    return grad

@@ -16,22 +16,35 @@ counterpart.
 Two CUDA kernels (`jnerf_tpu_torch/csrc/hash_encode.cu`) compute these:
 `encode_fwd` (kernel F; 16-byte row loads, the output written in the
 encoder's compute dtype, bf16 or f32, as 16-byte stores) and `grad_table`
-(kernel B; 16-byte vector reductions, a warp's contributions summed per
-entry before they reach L2).  Each wrapper runs its plain PyTorch twin (`hash_encode_plain`,
-`grad_table_plain`) only when given CPU tensors; for CUDA tensors it
-launches the kernel or raises.  Each wrapper counts its launches in
-``.launches``.
+(kernel B; each level's samples sorted stably by base entry, then each
+gradient row's contributions summed in the twin's order and the row
+written once, so every launch gives the twin's bits; `grad_table_plan`
+returns the sort, `grad_table_plan_plain` its plain twin).  Each wrapper
+runs its plain PyTorch twin (`hash_encode_plain`, `grad_table_plain`)
+only when given CPU tensors; for CUDA tensors it launches the kernel or
+raises.  Each wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .hash_grid import HashGridSpec, _corner_offsets, level_masks, level_multipliers
+from .cuda_lib import Launch, hash_encode_lib
+from .hash_grid import (
+    HashGridSpec,
+    _corner_offsets,
+    hash_grid_indices,
+    level_masks,
+    level_multipliers,
+    live_rows,
+    piece_plan,
+    piece_sums,
+)
 
 _U32 = 0xFFFFFFFF
 _KERNEL_FEATURES = (1, 2, 4, 8)
@@ -117,23 +130,83 @@ def hash_encode_plain(spec: HashGridSpec, table: torch.Tensor,
 
 def grad_table_plain(spec: HashGridSpec, pos: torch.Tensor, g: torch.Tensor):
     """Plain PyTorch twin of kernel B: dL/dtable [n_entries, F] f32 from
-    pos [N, 3] and the f32 upstream gradient g [N, F*L]."""
+    pos [N, 3] and the f32 upstream gradient g [N, F*L], in kernel B's
+    order: each level's samples (those of `hash_grid.live_rows`) sorted
+    stably by base entry e0 and cut in pieces (`hash_grid.piece_plan`);
+    for corner c each piece's sum of w_c * g goes to entry (e0 +
+    corner_off_c) mod size, and each entry adds its pieces from +0.0,
+    corner by corner, in sorted order (``index_add_`` adds in index
+    order)."""
     consts = level_consts(spec)
     L, F = spec.n_levels, spec.n_features_per_level
     grad = torch.zeros((spec.n_entries, F), dtype=torch.float32,
                        device=pos.device)
     g3 = g.reshape(pos.shape[0], F, L)
+    live = live_rows(spec, g)
     for lvl in range(L):
-        e0, X = _cell(consts, lvl, pos)
-        gl = g3[:, :, lvl]
+        keep = live[:, lvl]
+        e0, X = _cell(consts, lvl, pos[keep])
+        gl = g3[keep, :, lvl]
+        plan = piece_plan(e0)
         for c in range(8):
             w = _corner_weight(X, c)
-            grad.index_add_(0, _corner_entry(consts, lvl, e0, c),
-                            w[:, None] * gl)
+            grad.index_add_(0, _corner_entry(consts, lvl, plan[1], c),
+                            piece_sums(plan, w[:, None] * gl))
     return grad
 
 
+def grad_table_plan_plain(spec: HashGridSpec, pos: torch.Tensor,
+                          g: torch.Tensor, xor: bool = False):
+    """Plain twin of kernel B's sort: (start [n_entries + L + 1] int32,
+    order [L * M] int32).  Each level's M items (linear: the samples,
+    keyed by their base entry e0; xor: sample * 8 + corner, keyed by the
+    corner's entry; an item of a sample left out by `live_rows` keyed by
+    the level's size) sorted stably by key, level after level; order holds
+    the items' indices within their level, start[off_l + l + k] the first
+    position of level l's key k, for k up to the level's size, and
+    start[n_entries + L] = L * M."""
+    L = spec.n_levels
+    n = pos.shape[0]
+    offs = torch.tensor(spec.level_offsets[:-1], device=pos.device)
+    sizes = torch.tensor(spec.level_sizes, device=pos.device)
+    live = live_rows(spec, g).t()  # [L, N]
+    if xor:
+        idx = hash_grid_indices(spec, pos)[0].long().reshape(n, L, 8)
+        keys = (idx - offs[None, :, None]).permute(1, 0, 2).reshape(L, n * 8)
+        live = live.repeat_interleave(8, dim=1)
+    else:
+        consts = level_consts(spec)
+        keys = torch.stack([_cell(consts, lvl, pos)[0] for lvl in range(L)])
+    keys = torch.where(live, keys, sizes[:, None])
+    order = torch.sort(keys, dim=1, stable=True).indices
+    rows = keys + (offs + torch.arange(L, device=pos.device))[:, None]
+    n_starts = spec.n_entries + L
+    start = torch.zeros(n_starts + 1, dtype=torch.int64, device=pos.device)
+    start[1:] = torch.cumsum(torch.bincount(rows.reshape(-1),
+                                            minlength=n_starts), 0)
+    return start.to(torch.int32), order.reshape(-1).to(torch.int32)
+
+
 # ---------------------------------------------------------- kernel wrappers
+_HASH_BWD = Launch(hash_encode_lib, "hash_encode_bwd")
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_layout(spec: HashGridSpec, n: int, xor: bool):
+    """Kernel B's work space for n samples: (int32s, where the row starts
+    lie in it, where the sorted items lie in it)."""
+    sizes = np.asarray(spec.level_sizes, np.uint32)
+    out = (ctypes.c_longlong * 3)()
+    total = hash_encode_lib().hash_encode_bwd_layout(
+        n, spec.n_levels, spec.n_features_per_level, int(xor),
+        sizes.ctypes.data, out)
+    if total < 0:
+        raise ValueError(f"kernel B does not take N={n} samples of "
+                         f"{spec.n_levels} levels ({spec.n_entries} entries): "
+                         "a size reaches 2^31")
+    return tuple(out)
+
+
 def _require_cuda_inputs(spec: HashGridSpec, pos: torch.Tensor, **named):
     if pos.device.type != "cuda":
         raise ValueError(f"hash kernels take CPU or CUDA tensors, got {pos.device}")
@@ -202,32 +275,49 @@ def encode_fwd(spec: HashGridSpec, table: torch.Tensor, pos: torch.Tensor,
 encode_fwd.launches = 0
 
 
-def grad_table(spec: HashGridSpec, pos: torch.Tensor,
-               g: torch.Tensor) -> torch.Tensor:
-    """Kernel B: table gradient [n_entries, F] f32 (f32 atomics; the sum
-    order, and so the last bits, vary from run to run)."""
-    if pos.device.type == "cpu":
-        return grad_table_plain(spec, pos, g)
+def _bwd(spec: HashGridSpec, pos, g, plan_only: bool):
+    """Launch kernel B (plan_only: its sort alone): (grad, work)."""
     L, F = spec.n_levels, spec.n_features_per_level
     n = pos.shape[0]
     _require_cuda_inputs(spec, pos, g=(g, (n, F * L)))
-    from .cuda_lib import check, hash_encode_lib
-
-    lib = hash_encode_lib()
-    grad = torch.zeros((spec.n_entries, F), dtype=torch.float32,
+    work = torch.empty(bwd_layout(spec, n, False)[0], dtype=torch.int32,
                        device=pos.device)
-    consts = level_consts(spec)
-    with torch.cuda.device(pos.device):
-        status = lib.hash_encode_bwd(
-            pos.data_ptr(), g.data_ptr(), grad.data_ptr(), n, L, F,
-            *_const_ptrs(consts),
-            torch.cuda.current_stream(pos.device).cuda_stream)
-    check(status, "hash_encode_bwd")
+    grad = torch.empty((0 if plan_only else spec.n_entries, F),
+                       dtype=torch.float32, device=pos.device)
+    _HASH_BWD(pos.get_device(), pos.data_ptr(), g.data_ptr(), grad.data_ptr(),
+              work.data_ptr(), n, L, F, *_const_ptrs(level_consts(spec)),
+              int(plan_only))
+    return grad, work
+
+
+def grad_table(spec: HashGridSpec, pos: torch.Tensor,
+               g: torch.Tensor) -> torch.Tensor:
+    """Kernel B: table gradient [n_entries, F] f32, each entry's
+    contributions summed in `grad_table_plain`'s order, so equal to the
+    twin bit for bit on every launch."""
+    if pos.device.type == "cpu":
+        return grad_table_plain(spec, pos, g)
+    if pos.shape[0] == 0:  # nothing to sum
+        return torch.zeros((spec.n_entries, spec.n_features_per_level),
+                           dtype=torch.float32, device=pos.device)
+    grad, _ = _bwd(spec, pos, g, False)
     grad_table.launches += 1
     return grad
 
 
 grad_table.launches = 0
+
+
+def grad_table_plan(spec: HashGridSpec, pos: torch.Tensor, g: torch.Tensor):
+    """Kernel B's sort alone, as `grad_table_plan_plain` returns it (on
+    CPU tensors, that twin).  Not counted: kernel B's launches are counted
+    by `grad_table`."""
+    if pos.device.type == "cpu":
+        return grad_table_plan_plain(spec, pos, g)
+    _, at_start, at_order = bwd_layout(spec, pos.shape[0], False)
+    _, work = _bwd(spec, pos, g, True)
+    return (work[at_start:at_start + spec.n_entries + spec.n_levels + 1],
+            work[at_order:at_order + spec.n_levels * pos.shape[0]])
 
 
 class HashEncode(torch.autograd.Function):

@@ -12,6 +12,12 @@ wrapper runs its twin only when given CPU tensors; for CUDA tensors it
 launches the kernel or raises; each counts its launches in
 ``.launches``.
 
+Kernel B sorts each level's (sample, corner) items stably by entry and
+sums each entry's in `grad_table_xor_plain`'s order (sample-major), so it
+equals the twin bit for bit on every launch; `grad_table_xor_plan`
+returns the sort (`hash_nbr.grad_table_plan_plain(spec, pos, g,
+xor=True)` is its twin).
+
 The one deviation from the JAX package: its table gradient sums the bf16
 contributions in bf16 (the cotangent of the bf16 cast through
 ``jnp.take``); kernel B and its twin sum the same contributions in f32.
@@ -31,7 +37,8 @@ from .hash_grid import (
     hash_encode_xor_plain,
     xor_level_consts,
 )
-from .hash_nbr import _require_cuda_inputs
+from .cuda_lib import Launch, hash_encode_lib
+from .hash_nbr import _require_cuda_inputs, bwd_layout, grad_table_plan_plain
 
 
 class XorConsts(NamedTuple):
@@ -73,6 +80,31 @@ def _launch(name: str, spec: HashGridSpec, pos, src, dst, bf16: bool):
     check(status, name)
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_launch(hash_func: str) -> Launch:
+    """Kernel B in xor mode from the library of ``hash_func``."""
+    return Launch(lambda: hash_encode_lib(hash_func), "hash_encode_xor_bwd")
+
+
+def _bwd(spec: HashGridSpec, pos, g, bf16: bool, plan_only: bool):
+    """Launch kernel B in xor mode (plan_only: its sort alone): (grad,
+    work)."""
+    L, F = spec.n_levels, spec.n_features_per_level
+    n = pos.shape[0]
+    _require_cuda_inputs(spec, pos, g=(g, (n, F * L)))
+    work = torch.empty(bwd_layout(spec, n, True)[0], dtype=torch.int32,
+                       device=pos.device)
+    grad = torch.empty((0 if plan_only else spec.n_entries, F),
+                       dtype=torch.float32, device=pos.device)
+    c = xor_consts(spec)
+    _bwd_launch(spec.hash_func)(
+        pos.get_device(), pos.data_ptr(), g.data_ptr(), grad.data_ptr(),
+        work.data_ptr(), n, L, F, int(bf16), c.scales.ctypes.data,
+        c.mults.ctypes.data, c.sizes.ctypes.data, c.offsets.ctypes.data,
+        c.hashed.ctypes.data, int(plan_only))
+    return grad, work
+
+
 def encode_xor_fwd(spec: HashGridSpec, table: torch.Tensor, pos: torch.Tensor,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel F in xor mode: [N, 3] positions -> [N, F*L] feature-major
@@ -100,20 +132,33 @@ def grad_table_xor(spec: HashGridSpec, pos: torch.Tensor, g: torch.Tensor,
                    bf16: bool) -> torch.Tensor:
     """Kernel B in xor mode: table gradient [n_entries, F] f32 from the f32
     upstream gradient g [N, F*L]; each contribution formed as the JAX
-    backward forms it (bf16(bf16(w) * g) when ``bf16``), summed in f32
-    atomics (the last bits vary from run to run)."""
+    backward forms it (bf16(bf16(w) * g) when ``bf16``), summed in f32 in
+    the twin's order: equal to the twin bit for bit."""
     if pos.device.type == "cpu":
         return grad_table_xor_plain(spec, pos, g, bf16)
-    F = spec.n_features_per_level
-    _require_cuda_inputs(spec, pos, g=(g, (pos.shape[0], F * spec.n_levels)))
-    grad = torch.zeros((spec.n_entries, F), dtype=torch.float32,
-                       device=pos.device)
-    _launch("hash_encode_xor_bwd", spec, pos, g, grad, bf16)
+    if pos.shape[0] == 0:  # nothing to sum
+        return torch.zeros((spec.n_entries, spec.n_features_per_level),
+                           dtype=torch.float32, device=pos.device)
+    grad, _ = _bwd(spec, pos, g, bf16, False)
     grad_table_xor.launches += 1
     return grad
 
 
 grad_table_xor.launches = 0
+
+
+def grad_table_xor_plan(spec: HashGridSpec, pos: torch.Tensor,
+                        g: torch.Tensor):
+    """Kernel B's sort in xor mode alone, as
+    `hash_nbr.grad_table_plan_plain(spec, pos, g, xor=True)` returns it
+    (on CPU tensors, that twin).  Not counted."""
+    if pos.device.type == "cpu":
+        return grad_table_plan_plain(spec, pos, g, xor=True)
+    n, L = pos.shape[0], spec.n_levels
+    _, at_start, at_order = bwd_layout(spec, n, True)
+    _, work = _bwd(spec, pos, g, False, True)
+    return (work[at_start:at_start + spec.n_entries + L + 1],
+            work[at_order:at_order + L * n * 8])
 
 
 class HashEncodeXor(torch.autograd.Function):

@@ -15,8 +15,8 @@ uniform samples and g ~ 0.01 N(0, 1) (numpy, seed 0): the archive's
 and slot come from the port's own hash (``packed_rows_slots``).  ``v3d``
 (the archive's library path) is the port's kernel B
 (``hash_nbr.grad_table``) on the same samples.  ``--split`` prints each
-K4 variant's kernels, device µs a call (the profiler's sums over 10
-calls; on the card only).
+variant's kernels, device µs a call (the profiler's sums over 10 calls;
+on the card only).
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def main(argv=None):
                     help=f"any of {', '.join(VARIANTS)} (all but v3d by "
                     "default)")
     ap.add_argument("--split", action="store_true",
-                    help="print each K4 variant's kernels' device time")
+                    help="print each variant's kernels' device time")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
     if set(args.variants) - set(VARIANTS):
@@ -107,29 +107,32 @@ def main(argv=None):
     pos, g, rows, slots = inputs(p, spec)
     for v in args.variants or VARIANTS[:4]:
         if v == "v3d":
-            ms = p.time(lambda: hash_nbr.grad_table(spec, pos, g))
+            def run():
+                return hash_nbr.grad_table(spec, pos, g)
+
+            ms = p.time(run)
             F = spec.n_features_per_level
             p.emit(v, f"v3d (library): {ms:.1f} ms", ms, N * L,
                    12 * N + 4 * F * L * N + 4 * F * spec.n_entries,
                    "kernel B (hash_nbr.grad_table)")
-            continue
-        n_acc = 2 if v == "alt2" else 1
-        mode = "v2d" if v == "alt2" else v
+        else:
+            n_acc = 2 if v == "alt2" else 1
+            mode = "v2d" if v == "alt2" else v
 
-        def k4():
-            return envelope.packed_hash_scatter(
-                pos, g, rows, slots, scales, n_rows, n_acc, mode, BLK)
+            def run():
+                return envelope.packed_hash_scatter(
+                    pos, g, rows, slots, scales, n_rows, n_acc, mode, BLK)
 
-        ms = p.time(k4)
-        tile_rows = (None if mode == "noscat" else
-                     envelope.k4_tile_rows(n_acc, mode))
-        tile = f", {tile_rows}-row tiles" if tile_rows else ""
-        p.emit(v, f"{v}: {ms:.1f} ms ({ms * 1e6 / (N * L):.2f} ns/row)", ms,
-               N * L, k4_bytes(L, N, n_rows, n_acc, mode),
-               f"K4 ({mode}, {n_acc} accumulator{'s' * (n_acc > 1)}{tile})",
-               tile_rows=tile_rows)
+            ms = p.time(run)
+            tile_rows = (None if mode == "noscat" else
+                         envelope.k4_tile_rows(n_acc, mode))
+            tile = f", {tile_rows}-row tiles" if tile_rows else ""
+            p.emit(v, f"{v}: {ms:.1f} ms ({ms * 1e6 / (N * L):.2f} ns/row)",
+                   ms, N * L, k4_bytes(L, N, n_rows, n_acc, mode),
+                   f"K4 ({mode}, {n_acc} accumulator{'s' * (n_acc > 1)}"
+                   f"{tile})", tile_rows=tile_rows)
         if args.split:
-            split = kernel_split(k4, p.device)
+            split = kernel_split(run, p.device)
             p.lines[-1]["split_us"] = split
             print("  kernels, device us a call: " + ", ".join(
                 f"{k} {x:.1f}" for k, x in split.items()), flush=True)

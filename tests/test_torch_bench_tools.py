@@ -260,8 +260,7 @@ def test_bench_psnr_tiny_cpu(tmp_path, monkeypatch, capsys):
     assert len(res["extra"]["per_view_psnr"]) == 2
     assert np.isfinite(res["value"]) and res["vs_baseline"] is None
     assert res["extra"]["backend"] == "cpu" and res["extra"]["card"] == "cpu"
-    assert files_under(tmp_path, REPO / "logs") - before == \
-        {out.parent, out}
+    assert files_under(tmp_path, REPO / "logs") - before == {out}
 
 
 def test_bench_psnr_ceiling_names():

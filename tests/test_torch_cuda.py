@@ -26,6 +26,8 @@ SPECS = {
     "f4l8": (8, 4, 13, 512.0, None),
     "f8l4": (4, 8, 13, 256.0, None),
     "f8l4cap3000": (4, 8, 12, 256.0, 3000),
+    # 5 entries a level: the corners of one cell share entries
+    "f4l2cap5": (2, 4, 10, 16.0, 5),
 }
 
 
@@ -57,12 +59,19 @@ def _inputs(spec, dev, n=4096, seed=0):
     return tuple(torch.from_numpy(x).to(dev) for x in (table, pos, g))
 
 
+def _twin_grad(spec, pos, g, xor=False, bf16=False):
+    """Kernel B's twin on CPU copies (on CUDA tensors index_add_ adds with
+    atomics, in no fixed order)."""
+    if xor:
+        return hash_grid.grad_table_xor_plain(spec, pos.cpu(), g.cpu(), bf16)
+    return hash_nbr.grad_table_plain(spec, pos.cpu(), g.cpu())
+
+
 @pytest.mark.parametrize("name", list(SPECS))
 def test_kernels_match_plain(dev, name):
     """Kernel F equals its twin but for a rare bf16 rounding flip of one
     corner product (atol 1e-3 at |table| ~ 0.1), with 0 base-entry
-    mismatches; kernel B agrees up to the atomics' summation order (1e-5
-    of the largest gradient)."""
+    mismatches; kernel B equals its twin (on CPU copies) bit for bit."""
     spec = _spec(name)
     table, pos, g = _inputs(spec, dev)
     e0k = torch.zeros((pos.shape[0], spec.n_levels), dtype=torch.int32,
@@ -71,12 +80,13 @@ def test_kernels_match_plain(dev, name):
     fk = hash_nbr.encode_fwd(spec, table, pos, e0_out=e0k)
     fp = hash_nbr.hash_encode_plain(spec, table, pos, e0_out=e0p)
     bk = hash_nbr.grad_table(spec, pos, g)
-    bp = hash_nbr.grad_table_plain(spec, pos, g)
     torch.cuda.synchronize()
     assert int((e0k != e0p).sum()) == 0
     assert float((fk - fp).abs().max()) <= 1e-3
-    assert float((bk - bp).abs().max()) <= 1e-5 * float(bp.abs().max())
+    assert torch.equal(bk.cpu(), _twin_grad(spec, pos, g))
 
+
+RAGGED_B = 100_003
 
 # The headline's table and the f2l16 one that the bench times at 2^18.
 BIG_SPECS = {
@@ -105,19 +115,86 @@ def _clustered(n, dev, n_rays=64, seed=0):
 @pytest.mark.parametrize("n", [1 << 17, 100_003])
 @pytest.mark.parametrize("name", list(BIG_SPECS))
 def test_grad_table_clustered_matches_plain(dev, name, n):
-    """Kernel B on clustered samples (the inputs that contend on the
-    coarse levels' entries), at the headline's shapes and at a ragged N
-    (a part-empty last block): within the atomics' summation order (1e-5
-    of the largest gradient) of its twin."""
+    """Kernel B on clustered samples (the inputs whose coarse levels'
+    rows take thousands of contributions) with a fifth of the slots empty
+    (one position, g zero), at the headline's shapes and at a ragged N:
+    equal to its twin on CPU copies, and to a second launch, bit for
+    bit."""
     spec = HashGridSpec(**BIG_SPECS[name])
     L, F = spec.n_levels, spec.n_features_per_level
     pos = _clustered(n, dev)
     g = torch.randn((n, F * L), generator=torch.Generator(dev).manual_seed(1),
                     device=dev)
-    ref = hash_nbr.grad_table_plain(spec, pos, g)
+    pos[-n // 5:] = 0.5  # empty slots, as compaction leaves them
+    g[-n // 5:] = 0.0
     got = hash_nbr.grad_table(spec, pos, g)
+    assert torch.equal(got, hash_nbr.grad_table(spec, pos, g))
+    assert torch.equal(got.cpu(), _twin_grad(spec, pos, g))
+
+
+@pytest.mark.parametrize("samples", ["uniform", "clustered"])
+@pytest.mark.parametrize("name", list(BIG_SPECS))
+def test_grad_table_sort_is_the_plain_plan(dev, name, samples):
+    """Kernel B's sort (linear and xor), at a ragged N: every row's first
+    position and every sorted item equal the plain plan's, a stable sort
+    of each level's items by entry (a tenth of the samples empty slots,
+    their g all zero, sorted last)."""
+    spec = HashGridSpec(**BIG_SPECS[name])
+    n = 100_003
+    gen = torch.Generator(dev).manual_seed(4)
+    pos = (torch.rand((n, 3), generator=gen, device=dev)
+           if samples == "uniform" else _clustered(n, dev))
+    g = torch.randn((n, spec.n_features_per_level * spec.n_levels),
+                    generator=gen, device=dev)
+    g[-n // 10:] = 0.0
+    pc, gc = pos.cpu(), g.cpu()
+    for got, want in ((hash_nbr.grad_table_plan(spec, pos, g),
+                       hash_nbr.grad_table_plan_plain(spec, pc, gc)),
+                      (hash_xor.grad_table_xor_plan(spec, pos, g),
+                       hash_nbr.grad_table_plan_plain(spec, pc, gc,
+                                                      xor=True))):
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("xor", [False, True])
+@pytest.mark.parametrize("name,n", [("f8l4", RAGGED_B), ("f4l2cap5", 37),
+                                    ("f2l4", 1)])
+def test_grad_table_writes_inside_its_buffers(dev, name, n, xor):
+    """Kernel B launched on a work space and a gradient with guard zones
+    on both sides: the guards stay as they were and the gradient equals
+    the twin, at a ragged N, at 37 samples on a level of 5 entries and
+    at one sample."""
+    spec = _spec(name)
+    _, pos, g = _inputs(spec, dev, n=max(n, 256))
+    pos, g = pos[:n].contiguous(), g[:n].contiguous()
+    L, F = spec.n_levels, spec.n_features_per_level
+    pad, bufs = 4096, []
+
+    def guarded(size, dtype):
+        buf = torch.full((size + 2 * pad,), -7, dtype=dtype, device=dev)
+        bufs.append(buf)
+        return buf[pad:pad + size]
+
+    work = guarded(hash_nbr.bwd_layout(spec, n, xor)[0], torch.int32)
+    grad = guarded(spec.n_entries * F, torch.float32)
+    if xor:
+        c = hash_xor.xor_consts(spec)
+        hash_xor._bwd_launch(spec.hash_func)(
+            dev.index or 0, pos.data_ptr(), g.data_ptr(), grad.data_ptr(),
+            work.data_ptr(), n, L, F, 1, c.scales.ctypes.data,
+            c.mults.ctypes.data, c.sizes.ctypes.data, c.offsets.ctypes.data,
+            c.hashed.ctypes.data, 0)
+    else:
+        hash_nbr._HASH_BWD(
+            dev.index or 0, pos.data_ptr(), g.data_ptr(), grad.data_ptr(),
+            work.data_ptr(), n, L, F,
+            *hash_nbr._const_ptrs(hash_nbr.level_consts(spec)), 0)
     torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    for buf in bufs:
+        assert bool((buf[:pad] == -7).all() and (buf[-pad:] == -7).all())
+    assert torch.equal(grad.view(-1, F).cpu(),
+                       _twin_grad(spec, pos, g, xor=xor, bf16=True))
 
 
 @pytest.mark.parametrize("samples", ["uniform", "clustered"])
@@ -160,8 +237,7 @@ def test_autograd_goes_through_both_kernels(dev):
     assert hash_nbr.encode_fwd.launches == f0 + 1
     assert hash_nbr.grad_table.launches == b0 + 1
     g = torch.cos(out.detach().float()).to(torch.bfloat16).float()
-    ref = hash_nbr.grad_table_plain(spec, pos, g)
-    assert float((tab.grad - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(tab.grad.cpu(), _twin_grad(spec, pos, g))
 
 
 def test_wrappers_refuse_bad_inputs(dev):
@@ -320,8 +396,8 @@ def test_xor_kernels_match_plain(dev, name, hash_func):
     just outside [0, 1] (where the f32 -> uint32 conversion saturates) and
     on cell borders, with the default hash and a custom one (its own
     library): the bf16 forward within one bf16 ulp and 1e-3, the f32
-    forward within 1e-3, the table gradient (bf16 products and f32) within
-    1e-5 of its largest entry, at a ragged N."""
+    forward within 1e-3, the table gradient (bf16 products and f32) equal
+    to its twin on CPU copies and to a second launch, at a ragged N."""
     kw = dict(XOR_SPECS[name])
     if hash_func == "custom":
         kw["hash_func"] = CUSTOM_HASH
@@ -337,9 +413,8 @@ def test_xor_kernels_match_plain(dev, name, hash_func):
             assert _bf16_ulps(got, ref) <= 1
     for rnd in (True, False):
         got = hash_xor.grad_table_xor(spec, pos, g, rnd)
-        ref = hash_grid.grad_table_xor_plain(spec, pos, g, rnd)
-        torch.cuda.synchronize()
-        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        assert torch.equal(got, hash_xor.grad_table_xor(spec, pos, g, rnd))
+        assert torch.equal(got.cpu(), _twin_grad(spec, pos, g, True, rnd))
 
 
 def test_xor_flagship_table_on_clustered_samples(dev):
@@ -357,9 +432,7 @@ def test_xor_flagship_table_on_clustered_samples(dev):
     ref = hash_grid.hash_encode_xor_plain(spec, table, pos, torch.bfloat16)
     assert _bf16_ulps(got, ref) <= 1
     got = hash_xor.grad_table_xor(spec, pos, g, True)
-    ref = hash_grid.grad_table_xor_plain(spec, pos, g, True)
-    torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got.cpu(), _twin_grad(spec, pos, g, True, True))
 
 
 def test_xor_autograd_goes_through_both_kernels(dev):
@@ -377,8 +450,7 @@ def test_xor_autograd_goes_through_both_kernels(dev):
             hash_nbr.encode_fwd.launches, hash_nbr.grad_table.launches) == (
         counts[0] + 1, counts[1] + 1, counts[2], counts[3])
     g = torch.cos(out.detach().float()).to(torch.bfloat16).float()
-    ref = hash_grid.grad_table_xor_plain(spec, pos, g, True)
-    assert float((tab.grad - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(tab.grad.cpu(), _twin_grad(spec, pos, g, True, True))
 
 
 def test_xor_wrappers_refuse_bad_inputs(dev):
@@ -398,9 +470,9 @@ def test_xor_wrappers_refuse_bad_inputs(dev):
 # The envelope kernels K1-K4 (ops/envelope.py) at the archived probes'
 # shapes and at a ragged N (100003).  K1 and K2 copy or round once, so they
 # equal their twins bit for bit; K3 and K4 are held to the float64 sum of
-# the same f32 contributions within 1e-5 of its largest entry (as kernel B
-# in chip_smoke.py); K3 and K4's noscat add with f32 atomics, and K4's
-# other modes also equal their twin bit for bit (they sum in sample order).
+# the same f32 contributions within 1e-5 of its largest entry, and K3 and
+# K4 (but noscat, which adds with f32 atomics) also equal their twins bit
+# for bit (they sum in index and sample order).
 RAGGED = 100_003
 
 
@@ -482,8 +554,9 @@ def _held(got, exact):
     (RAGGED, 1 << 19, 4, False),    # 16-byte rows
 ])
 def test_row_scatter_add_is_the_exact_sum(dev, n, rows, w, clustered):
-    """K3 within 1e-5 of the largest entry of the f64 sum; indices
-    outside the rows are dropped."""
+    """K3 within 1e-5 of the largest entry of the f64 sum and equal to
+    its twin on CPU copies and to a second launch; indices outside the
+    rows are dropped."""
     if clustered:
         from jnerf_tpu_torch.tools.archive.common import clustered_rows
 
@@ -496,6 +569,47 @@ def test_row_scatter_add_is_the_exact_sum(dev, n, rows, w, clustered):
     assert envelope.row_scatter_add.launches == before + 1
     assert _held(got, envelope.row_scatter_add_plain(idx, vals, rows,
                                                      torch.float64))
+    assert torch.equal(got, envelope.row_scatter_add(idx, vals, rows))
+    assert torch.equal(got.cpu(), envelope.row_scatter_add_plain(
+        idx.cpu(), vals.cpu(), rows))
+
+
+@pytest.mark.parametrize("n,rows,w", [(1 << 21, 32768, 128), (RAGGED, 5000, 4),
+                                      (RAGGED, 1 << 19, 32)])
+def test_row_scatter_sort_is_the_plain_plan(dev, n, rows, w):
+    """K3's sort: each row's first position and every sorted source index
+    equal the plain plan's (indices outside the rows last)."""
+    idx = _idx(n, rows + 16, dev, lo=-16)
+    vals = _randn((n, w), dev)
+    for a, b in zip(envelope.row_scatter_plan(idx, vals, rows),
+                    envelope.row_scatter_plan_plain(idx.cpu(), rows)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n,rows,w", [(RAGGED, 1000, 4), (37, 3, 32),
+                                      (4099, 70000, 128)])
+def test_row_scatter_add_writes_inside_its_buffers(dev, n, rows, w):
+    """K3 launched on a work space and an output with guard zones on both
+    sides: the guards stay as they were and the output equals the twin
+    (rows with no source get zeros)."""
+    idx = _idx(n, rows + 4, dev, lo=-4)
+    vals = _randn((n, w), dev)
+    pad, bufs = 4096, []
+
+    def guarded(size, dtype):
+        buf = torch.full((size + 2 * pad,), -7, dtype=dtype, device=dev)
+        bufs.append(buf)
+        return buf[pad:pad + size]
+
+    work = guarded(envelope.row_scatter_layout(n, rows)[0], torch.int32)
+    out = guarded(rows * w, torch.float32)
+    envelope._ROW_SCATTER(dev.index or 0, idx.data_ptr(), vals.data_ptr(),
+                          out.data_ptr(), work.data_ptr(), n, w // 4, rows, 0)
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert bool((buf[:pad] == -7).all() and (buf[-pad:] == -7).all())
+    assert torch.equal(out.view(rows, w).cpu(), envelope.row_scatter_add_plain(
+        idx.cpu(), vals.cpu(), rows))
 
 
 @pytest.mark.parametrize("n", [1 << 18, RAGGED])
@@ -623,8 +737,8 @@ def test_packed_hash_scatter_sums_in_sample_order(dev):
 
 
 def test_envelope_kernels_on_a_side_stream(dev):
-    """K2 in every mode and K4 launched under torch.cuda.stream(s) run on
-    s and equal their twins."""
+    """K2 in every mode, K3, K4 and kernel B launched under
+    torch.cuda.stream(s) run on s and equal their twins."""
     side = torch.cuda.Stream()
     src = _randn((4096, 128), dev)
     cases = [("flat", _idx(8 * 32768, (1 << 19) + 3, dev, lo=-3)
@@ -632,11 +746,20 @@ def test_envelope_kernels_on_a_side_stream(dev):
              ("axis0", _idx(4096 * 128, 4099, dev, lo=-3).reshape(4096, 128)),
              ("axis1", _idx(4096 * 128, 131, dev, lo=-3).reshape(4096, 128))]
     pos, g, rows, slots, scales = _k4_inputs(dev, 1 << 18)
+    k3_idx = _idx(1 << 20, 4096, dev)
+    k3_vals = _randn((1 << 20, 32), dev)
+    spec = _spec("f8l4")
+    _, bpos, bg = _inputs(spec, dev, n=RAGGED)
     torch.cuda.synchronize()
     with torch.cuda.stream(side):
         got = [envelope.elem_gather(src, idx, mode) for mode, idx in cases]
         k4 = envelope.packed_hash_scatter(pos, g, rows, slots, scales, 32768)
+        k3 = envelope.row_scatter_add(k3_idx, k3_vals, 4096)
+        kb = hash_nbr.grad_table(spec, bpos, bg)
     side.synchronize()
+    assert torch.equal(k3.cpu(), envelope.row_scatter_add_plain(
+        k3_idx.cpu(), k3_vals.cpu(), 4096))
+    assert torch.equal(kb.cpu(), _twin_grad(spec, bpos, bg))
     for (mode, idx), out in zip(cases, got):
         assert torch.equal(out, envelope.elem_gather_plain(src, idx, mode))
     assert torch.equal(k4.cpu(), envelope.packed_hash_scatter_plain(
