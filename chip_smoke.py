@@ -3,8 +3,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc and the port's sources beside this file; exits
-nonzero, printing no result, without them.  Phases, each of which raises
-on failure:
+nonzero, printing no result, without them.  Every NGP training run below
+goes through ``Runner.train_range``, which on the card runs each refresh
+window as the replay of a CUDA graph after an eager warm-up window of its
+shape (the launch counters count the replays' launches); where a phase
+needs a step's own tensors it trains that step eagerly.  Phases, each of
+which raises on failure:
 
 1. the card: its name and power limit (nvidia-smi);
 2. build the CUDA kernels from jnerf_tpu_torch/csrc (hash_encode.cu,
@@ -170,11 +174,22 @@ on failure:
    beside its twin and a library call (K2 also its host time a call);
 21. training repeats from a seed: the headline (plain MLP) for 48 steps
    and the xor hash (f2l16) for 32, each twice from one seed in this
-   process; the parameters, Adam's moments and count, the EMA, the
-   occupancy grid's state, the generator's state and every step's loss
-   must be equal bit for bit, and kernel B counted in every step.
+   process, through graph windows; the parameters, Adam's moments and
+   count, the EMA, the occupancy grid's state, the generator's state and
+   every step's loss (read from each window's loss buffer) must be equal
+   bit for bit, and kernel B counted in every step;
+22. graph windows against eager ones: the headline for 4 windows, the xor
+   hash (f2l16) and the fused-MLP headline for 2, each from one seed
+   through ``train_range`` (graph replays) and through
+   ``train_range_eager`` (loops of ``train_step``); both must end in equal
+   bits (phase 21's state and every step's loss) with equal launch
+   counts, and one more graph window run under torch.profiler must show
+   kernels F and B (and F-MLP) launched as often as the counters say.
+   Then `python -m jnerf_tpu_torch.tools.window_time` on the headline:
+   host ms, kernel ms, busy share, launches a step and peak memory of
+   each path at the adapted shape.
 
-Each of phases 9-20 prints its time and its peak device memory.  To make
+Each of phases 9-22 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
 steps (was 1000) and phase 13 for 384 (was 512).
 
@@ -1100,9 +1115,10 @@ def check_hash_xor(torch, hash_xor, hash_grid, name, spec, pos, g):
 
 
 def capture_steps(runner, fn_class, step, n_steps):
-    """Train steps [step, step + n_steps) with ``fn_class``'s backward
-    wrapped; returns the positions and the f32 upstream gradients that
-    reached it, concatenated over the steps."""
+    """Train steps [step, step + n_steps) eagerly (a replayed graph would
+    not call the wrapper) with ``fn_class``'s backward wrapped; returns the
+    positions and the f32 upstream gradients that reached it,
+    concatenated over the steps."""
     import torch
 
     got = []
@@ -1115,7 +1131,7 @@ def capture_steps(runner, fn_class, step, n_steps):
 
     fn_class.backward = staticmethod(backward)
     try:
-        runner.train_range(step, step + n_steps)
+        runner.train_range_eager(step, step + n_steps)
     finally:
         fn_class.backward = orig
     if len(got) != n_steps:
@@ -2955,34 +2971,47 @@ def same_bits(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
+def xor_cfg(ngp_synthetic_cfg):
+    cfg = ngp_synthetic_cfg(hash_levels=16, hash_features=2)
+    cfg.hash_indexing = "xor"
+    return cfg
+
+
+def train_logged(torch, runner, steps, graph=True):
+    """Train steps [0, steps) through graph windows (``train_range``) or
+    eager ones (``train_range_eager``); returns every step's main loss,
+    read from each window's loss buffer, on the host."""
+    losses = []
+    train = runner.train_range if graph else runner.train_range_eager
+    train(0, steps, tick=lambda *a: losses.append(
+        runner.window_losses.clone()))
+    torch.cuda.synchronize()
+    return torch.cat(losses).cpu()
+
+
 def run_repeat(torch, Runner, ngp_synthetic_cfg, hash_nbr, hash_xor):
     """Phase 21: the headline for HEADLINE_STEPS steps and the xor hash
-    (f2l16) for REPEAT_XOR_STEPS, each twice from one seed; raises unless
-    both runs of each end in equal bits (training_state and every step's
-    loss) with kernel B launched once a step.  Returns the launches."""
+    (f2l16) for REPEAT_XOR_STEPS, each twice from one seed through graph
+    windows; raises unless both runs of each end in equal bits
+    (training_state and every step's loss) with kernel B launched once a
+    step.  Returns the launches."""
     t_phase = phase_start(torch)
-
-    def xor_cfg():
-        cfg = ngp_synthetic_cfg(hash_levels=16, hash_features=2)
-        cfg.hash_indexing = "xor"
-
     out = {}
     for name, make_cfg, steps, kernel in (
             ("headline f8l4+m17f2k19", lambda: headline_cfg(
                 ngp_synthetic_cfg, False), HEADLINE_STEPS, hash_nbr.grad_table),
-            ("xor f2l16", xor_cfg, REPEAT_XOR_STEPS, hash_xor.grad_table_xor)):
+            ("xor f2l16", lambda: xor_cfg(ngp_synthetic_cfg), REPEAT_XOR_STEPS,
+             hash_xor.grad_table_xor)):
         runs = []
         for _ in range(2):
             make_cfg()
             runner = Runner(device="cuda")
-            losses, step = [], runner.train_step
-            runner.train_step = lambda step=step, losses=losses: (
-                losses.append(step().detach().clone()) or losses[-1])
             kernel.launches = 0
-            runner.train_range(0, steps)
-            torch.cuda.synchronize()
-            runs.append((torch.stack(losses).cpu(),
-                         training_state(torch, runner), kernel.launches))
+            losses = train_logged(torch, runner, steps)
+            if not runner._train_window_cache:
+                raise SystemExit(f"repeat [{name}]: no window ran as a graph")
+            runs.append((losses, training_state(torch, runner),
+                         kernel.launches))
             del runner
         (l1, s1, n1), (l2, s2, n2) = runs
         differ = [k for k in s1 if not same_bits(torch, s1[k], s2[k])]
@@ -2999,6 +3028,111 @@ def run_repeat(torch, Runner, ngp_synthetic_cfg, hash_nbr, hash_xor):
         out[name] = n1 + n2
     secs, peak = phase_end(torch, "repeat", t_phase)
     return dict(launches=out, phase_s=secs, peak_mib=peak)
+
+
+# Phase 22: graph windows against eager ones from one seed (the headline
+# for 4 windows, the xor hash and the fused-MLP headline for 2: a shape's
+# first window is its warm-up, the second its capture and first replay),
+# then tools/window_time.py on the headline, cut from its defaults (768
+# steps, then 8 windows timed and 8 profiled) to fit the phase's minute:
+# with 512 and 8 the phase took 79.7 s on an H100.
+WINDOW_RUNS = (("headline f8l4+m17f2k19", 4), ("xor f2l16", 2),
+               ("fused headline", 2))
+WINDOW_TIME_ARGS = ["--steps", "256", "--windows", "4"]
+# The CUDA kernel (a substring of the profiler's name) that each counted
+# wrapper launches once a call.
+PROFILED_KERNELS = {"F": "hash_fwd_kernel", "F xor": "hash_fwd_kernel",
+                    "B": "hash_prep_kernel", "B xor": "hash_prep_kernel",
+                    "F-MLP": "mlp_fwd_kernel", "B-MLP": "mlp_bwd_kernel"}
+
+
+def profiled_kernels(torch, fn):
+    """{kernel name: launches} of the CUDA kernels that ``fn`` runs, from
+    torch.profiler (kernels inside a graph replay included)."""
+    from collections import Counter
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == cuda and not e.is_user_annotation)
+
+
+def run_window_graphs(torch, Runner, ngp_synthetic_cfg, counters):
+    """Phase 22: each of WINDOW_RUNS trained from one seed through graph
+    windows and through eager ones; raises unless both end in equal bits
+    (training_state, every step's loss) with equal launch counts, and one
+    more graph window's launches, counted by the wrappers, equal the
+    profiler's kernel list.  Then window_time's eager-against-graph
+    reading.  Returns the launches and the reading."""
+    from jnerf_tpu_torch.tools import window_time
+
+    t_phase = phase_start(torch)
+    makes = {"headline f8l4+m17f2k19": lambda: headline_cfg(
+                 ngp_synthetic_cfg, False),
+             "xor f2l16": lambda: xor_cfg(ngp_synthetic_cfg),
+             "fused headline": lambda: headline_cfg(ngp_synthetic_cfg, True)}
+    launches = {}
+    for name, windows in WINDOW_RUNS:
+        steps = 16 * windows
+        runs = []
+        for graph in (True, False):
+            makes[name]()
+            runner = Runner(device="cuda")
+            reset_counts(counters)
+            losses = train_logged(torch, runner, steps, graph)
+            runs.append((runner, losses, training_state(torch, runner),
+                         read_counts(counters)))
+        (g_runner, g_loss, g_state, g_counts), (_, e_loss, e_state,
+                                                e_counts) = runs
+        differ = [k for k in e_state
+                  if not same_bits(torch, g_state[k], e_state[k])]
+        if not same_bits(torch, g_loss, e_loss):
+            differ.append("losses")
+        # One more window on the graph runner (its refresh, then a replay).
+        reset_counts(counters)
+        names = profiled_kernels(
+            torch, lambda: g_runner.train_range(steps, steps + 16))
+        window = read_counts(counters)
+        want, prof = {}, {}
+        for k, pat in PROFILED_KERNELS.items():
+            want[pat] = want.get(pat, 0) + window[k]
+            prof[pat] = sum(n for kn, n in names.items() if pat in kn)
+        graphs = len(g_runner._train_window_cache)
+        b = "B xor" if name.startswith("xor") else "B"
+        print(f"graph windows [{name}]: {steps} steps each way from seed 42; "
+              f"{len(e_state)} state tensors and {e_loss.numel()} losses "
+              f"compared, {len(differ)} differ {differ[:8]}; final loss "
+              f"{float(g_loss[-1]):.8f} / {float(e_loss[-1]):.8f}; launches "
+              f"graph {g_counts}, eager {e_counts}; {graphs} graphs; one "
+              f"more window: counters {want}, profiler {prof}", flush=True)
+        if differ or g_counts != e_counts or graphs < 1 or want != prof \
+                or g_counts[b] != steps or window[b] != 16 \
+                or (name.startswith("fused") and window["B-MLP"] != 16):
+            raise SystemExit(f"graph windows [{name}]: the paths differ "
+                             f"({differ}), launches {g_counts} / {e_counts}, "
+                             f"{graphs} graphs, or the counters {want} miss "
+                             f"the profiler's {prof}")
+        launches[name] = g_counts
+        del runs, g_runner
+    timing = window_time.main(WINDOW_TIME_ARGS)
+    for path in ("eager", "graph"):
+        line = timing[path]
+        if not all(positive(line[k]) for k in ("host_ms", "kernel_ms",
+                                                "busy", "launches",
+                                                "peak_mib")):
+            raise SystemExit(f"window_time [{path}]: {line}")
+    if timing["graph"]["graphs"] < 1 \
+            or timing["graph"]["loss"] != timing["eager"]["loss"]:
+        raise SystemExit(f"window_time: no graph, or the paths' losses "
+                         f"differ: {timing}")
+    secs, peak = phase_end(torch, "graph windows", t_phase)
+    return dict(launches=launches, timing=timing, phase_s=secs,
+                peak_mib=peak)
 
 
 def build_kernels(torch, cuda_lib):
@@ -3129,11 +3263,11 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-20 (the CLI, the xor kernels, the probe refresh, the mesh
+    """Phases 8-22 (the CLI, the xor kernels, the probe refresh, the mesh
     tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF,
     Recursive-NeRF, data parallelism, the real-capture configs, the
-    measuring tools and the envelope probes) in ``tmp``; returns the
-    kernels line."""
+    measuring tools, the envelope probes, the repeats and the graph
+    windows) in ``tmp``; returns the kernels line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -3172,6 +3306,11 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     tools = run_tools(torch, counters)
     env = run_envelope(torch)
     repeat = run_repeat(torch, Runner, ngp_synthetic_cfg, hash_nbr, hash_xor)
+    windows = run_window_graphs(torch, Runner, ngp_synthetic_cfg, counters)
+    window_launches = {k: {name: c[k] for name, c in
+                           windows["launches"].items()}
+                       for k in ("F", "B", "F xor", "B xor", "F-MLP",
+                                 "B-MLP")}
     tool_launches = {k: {name: c[k] for name, c in tools["launches"].items()}
                      for k in ("F", "B")}
     capture_launches = {k: {f"{name} {task}": cap[name][task]["launches"][k]
@@ -3207,6 +3346,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             "product rounded to bf16, summed in f32)",
             capture_path_launches=capture_launches["F"],
             tools_path_launches=tool_launches["F"],
+            window_path_launches=window_launches["F"],
             **cap_rows["fwd"],
             fused_path_launches=fused_launches["hash_fwd"],
             quality_path_launches=quality_launches["fwd"],
@@ -3231,6 +3371,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             "contributions: the scatter alone",
             cuda_kernels=CUDA_KERNELS["B"],
             repeat_path_launches=repeat["launches"],
+            window_path_launches=window_launches["B"],
             capture_path_launches=capture_launches["B"],
             tools_path_launches=tool_launches["B"],
             **cap_rows["bwd"],
@@ -3247,7 +3388,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             fused_launches["fwd"], dict(mlp["fwd"][N_SAMPLES], library_ms=None),
             f"N={N_SAMPLES} random rows",
             max_abs_err=max(mlp["fwd"]["err"], mlp_chunk["err"]),
-            library=no_lib,
+            library=no_lib, window_path_launches=window_launches["F-MLP"],
             **{f"N={N_RENDER} random rows": {
                 m: mlp["fwd"][N_RENDER][m]
                 for m in ("ms", "plain_ms", "bound_ms")},
@@ -3257,7 +3398,8 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
         kernel_row(
             "fused_mlp_bwd (B-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:123",
             fused_launches["bwd"], dict(mlp["bwd"][N_SAMPLES], library_ms=None),
-            f"N={N_SAMPLES}", max_abs_err=mlp["bwd"]["err"], library=no_lib),
+            f"N={N_SAMPLES}", max_abs_err=mlp["bwd"]["err"], library=no_lib,
+            window_path_launches=window_launches["B-MLP"]),
         kernel_row(
             "fused_density_mlp (D-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:242",
             launches["den"] + fused_launches["den"] + quality_launches["den"],
@@ -3280,6 +3422,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             library=no_lib + " (a gather of bf16 rows, bf16 weights and "
             "products, summed in f32)",
             test_task_launches=cli["xor"]["test_launches"]["F xor"],
+            window_path_launches=window_launches["F xor"],
             uniform={m: xs["uniform"]["fwd"][m]
                      for m in ("ms", "plain_ms", "bound_ms")}),
         kernel_row(
@@ -3290,6 +3433,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             "the same samples and table, bf16 products summed in f32",
             max_abs_err=max(x["bwd"]["err"] for x in xs.values()),
             cuda_kernels=CUDA_KERNELS["B"],
+            window_path_launches=window_launches["B xor"],
             library="index_put_(accumulate=True) of the precomputed "
             "contributions: the scatter alone",
             uniform={m: xs["uniform"]["bwd"][m]

@@ -15,6 +15,7 @@ package's batch iterator and ``sample_batch``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from math import pi
@@ -51,6 +52,13 @@ def matrix_ngp2nerf(matrix: np.ndarray, scale, offset, correct_pose=(1, -1, -1))
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _resolution(W, H, device):
+    """[W, H] f32 on ``device``, made once: a copy from the host inside a
+    training step would stop a CUDA graph's capture."""
+    return torch.tensor([W, H], dtype=torch.float32, device=device)
+
+
 def rays_from_pixels(pixel_index, transforms, focal_lengths, principal_points,
                      W, H):
     """Camera rays for flat pixel indices over [n_images, H, W].
@@ -76,7 +84,7 @@ def rays_from_pixels(pixel_index, transforms, focal_lengths, principal_points,
     xf = transforms[img_id]
     fl = focal_lengths[img_id]
     pp = principal_points[img_id]
-    res = torch.tensor([W, H], dtype=torch.float32, device=xy.device)
+    res = _resolution(W, H, xy.device)
     d_cam = torch.cat([(xy - pp) * res / fl, torch.ones_like(x)[:, None]], dim=-1)
     d_world = torch.einsum("bij,bj->bi", xf[:, :, :3], d_cam)
     rays_d = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)

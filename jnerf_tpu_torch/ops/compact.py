@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from .composite import network_to_density
+from .composite import network_to_density, transmittance
 
 
 class CompactInfo(NamedTuple):
@@ -98,7 +98,7 @@ def render_rays_compact(raw, dts, info: CompactInfo, background=None,
         (info.ray, col), alpha)[:, :n_samples]
     grid_rgb = raw.new_zeros((n_rays, n_samples + 1, 3)).index_put(
         (info.ray, col), rgb)[:, :n_samples]
-    trans = torch.cumprod(1.0 - grid_alpha + 1e-10, dim=1)
+    trans = transmittance(grid_alpha)
     t_excl = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
     weights = grid_alpha * t_excl  # [R, S]
     rgb_ray = torch.sum(weights[..., None] * grid_rgb, dim=1)

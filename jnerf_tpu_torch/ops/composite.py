@@ -16,6 +16,30 @@ import torch
 RAW_DENSITY_CAP = 15.0
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of a tensor with no zeros.
+    The backward is torch's own for such an input, reversed_cumsum(out *
+    g) / x, without its test for zeros: that test reads the device
+    (``.item()``), which a CUDA graph cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def transmittance(alpha):
+    """Inclusive transmittance along the last axis: cumprod(1 - alpha +
+    1e-10), whose factors are never zero."""
+    return _Cumprod.apply(1.0 - alpha + 1e-10)
+
+
 def network_to_density(raw):
     """Exponential density activation, saturated at RAW_DENSITY_CAP."""
     return torch.exp(torch.clamp(raw, max=RAW_DENSITY_CAP))
@@ -44,7 +68,7 @@ def render_rays(raw, dts, valid, truncated=None, background=None):
     rgb = torch.sigmoid(raw[..., :3])
     alpha = raw_to_alpha(raw[..., 3], dts, valid)
     # Exclusive cumprod: T_i = prod_{j<i} (1 - alpha_j).
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = transmittance(alpha)
     t_excl = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     weights = alpha * t_excl  # [R, S]
     rgb_ray = torch.sum(weights[..., None] * rgb, dim=-2)  # [R, 3]

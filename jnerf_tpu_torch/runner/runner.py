@@ -4,10 +4,33 @@ Counterpart of the training half of `jnerf_tpu/runner/runner.py`: the
 same components built from the same config, the same step (pixel sampling
 -> ray march -> compaction -> model -> composite -> loss -> Adam -> EMA),
 the same grid-refresh cadence and the same one-window-lagged batch
-adaptation.  The JAX package chains a refresh window of steps in one
-``lax.scan``; here the window is a Python loop of eager steps.  All random
-draws come from one ``torch.Generator`` on the runner's device, and the
-step takes injected draws so that a test can feed it the JAX package's.
+adaptation.  All random draws come from one ``torch.Generator`` on the
+runner's device, and the step takes injected draws so that a test can feed
+it the JAX package's.
+
+The JAX package chains a refresh window of steps in one ``lax.scan``,
+compiled once per (n_rays, samples/ray, steps) and dispatched once
+(``_train_window``).  Here, on a CUDA runner without a mesh,
+``train_range`` runs each window as the replay of one CUDA graph that
+holds the window's steps unrolled (``_train_window``, one graph per key in
+``_train_window_cache``, all in one memory pool).  The first window of a
+key runs eagerly, on the capture stream, as the warm-up that capture
+needs; the next one is captured and replayed, and later ones replay.  A
+replay reads what changes from step to step from device memory: the
+step's Adam and EMA scalars from a table copied in before it (one row a
+step; the eager step reads the same rows), the random draws from the
+runner's generator, registered with the graph so that each replay
+advances it as the eager steps would, and the grid state from the buffers
+the graph was captured on (a refresh's new tensors are copied into them).
+A graph window and an eager window from one seed end in the same bits.
+The wrappers' launch counters are bumped on the host, so each graph keeps
+the counts made while it was captured and adds them at every replay.  A
+capture that fails raises.  These stay eager: a CPU runner (no graphs), a
+runner with a mesh (gloo's collectives cannot be captured), the density
+grid refresh (the JAX runner dispatches it on its own too), rendering, and
+``train_step``, the counterpart of the JAX runner's ``_train_step``;
+``train_range_eager`` runs the same schedule with every window a loop of
+``train_step``.
 
 The rendering half is ported too: ``render_img``, ``render_img_with_pose``,
 ``render_test``, ``val_img`` and ``test`` march full images in chunks of
@@ -49,6 +72,7 @@ from __future__ import annotations
 
 import os
 import pickle
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,6 +81,7 @@ from jnerf_tpu_torch.dataset import camera_path
 from jnerf_tpu_torch.dataset.dataset import rays_from_pixels
 from jnerf_tpu_torch.dataset.dataset_util import write_image
 from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
+from jnerf_tpu_torch.ops import fused_mlp, hash_nbr, hash_xor
 from jnerf_tpu_torch.ops.compact import compact_indices, render_rays_compact
 from jnerf_tpu_torch.ops.composite import density_l1_reg, render_rays
 from jnerf_tpu_torch.parallel import (
@@ -84,6 +109,30 @@ from jnerf_tpu_torch.utils.registry import (
 # Relative strength of the reference's early-training negative-density push
 # (`calc_rgb.h:112,141`) in mean-loss units, as in the JAX package.
 DENSITY_L1_COEF = 1e-4 / 384.0
+
+# The kernel wrappers that count their launches (``fn.launches``), by module.
+COUNTED_WRAPPERS = (
+    (hash_nbr, ("encode_fwd", "grad_table")),
+    (hash_xor, ("encode_xor_fwd", "grad_table_xor")),
+    (fused_mlp, ("fused_mlp_fwd", "fused_mlp_bwd", "fused_density_mlp")),
+)
+
+
+def graph_windows(device: torch.device, mesh) -> bool:
+    """Whether ``train_range`` replays its windows as CUDA graphs: on a
+    CUDA device without a mesh."""
+    return torch.device(device).type == "cuda" and mesh is None
+
+
+class _WindowGraph(NamedTuple):
+    """A captured window: the graph, the static table of its steps'
+    scalars and the [n] main losses it writes, and each counted wrapper's
+    launches in one replay."""
+
+    graph: object
+    table: torch.Tensor
+    losses: torch.Tensor
+    launches: list
 
 
 class Runner:
@@ -141,6 +190,15 @@ class Runner:
         self.tot_train_steps = cfg.tot_train_steps
         self.sampler.init_state()
         self.start = 0
+        # (n_rays, samples/ray, steps) -> _WindowGraph; the keys
+        # whose eager warm-up window has run; the grid-state buffers the
+        # graphs read; their memory pool and capture stream (made at first
+        # use); the [n] main losses of the last window.
+        self._train_window_cache = {}
+        self._warm_windows = set()
+        self._window_state = {}
+        self._graph_pool = self._graph_stream = None
+        self.window_losses = None
         if cfg.load_ckpt:
             self.load_ckpt(self.ckpt_path)
         cfg.m_training_step = 0
@@ -229,37 +287,71 @@ class Runner:
                              DENSITY_L1_COEF)
         return main + reg, main, samples
 
-    def train_step(self, idx=None, bg=None, u=None):
+    def train_step(self, idx=None, bg=None, u=None, row=None):
         """One optimizer step at the sampler's current shapes; returns the
-        main loss (a 0-dim device tensor)."""
+        main loss (a 0-dim device tensor).  ``row`` holds the step's Adam
+        and EMA scalars on the device (a row of ``_step_table``; made here
+        when None)."""
+        if row is None:
+            row = self._step_table(1)[0]
         total, main, samples = self.forward_loss(
             self.sampler.n_rays_per_batch, self.sampler.n_samples_per_ray,
             idx=idx, bg=bg, u=u)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         all_reduce_grads(self.params, self.mesh)
-        self.optimizer.step()
+        k = self.optimizer.row_width
+        self.optimizer.step(row=row[:k])
         if self.ema is not None:
-            self.ema.step(self.params, self.ema_state)
-        state = self.sampler.state
-        state["measured_batch_size"] = (state["measured_batch_size"]
-                                        + samples.count.sum())
+            self.ema.step(self.params, self.ema_state, row=row[k:])
+        self.sampler.state["measured_batch_size"].add_(samples.count.sum())
         return main.detach()
+
+    def _step_rows(self, n: int) -> np.ndarray:
+        """[n, width] f32: the scalars of the next ``n`` steps, Adam's
+        columns then the EMA's."""
+        rows = [self.optimizer.scalar_rows(n)]
+        if self.ema is not None:
+            rows.append(self.ema.scalar_rows(self.ema_state["steps"], n))
+        return np.concatenate(rows, axis=1)
+
+    def _step_table(self, n: int, out=None) -> torch.Tensor:
+        """``_step_rows(n)`` on the runner's device, in one host-to-device
+        copy that does not wait (into ``out`` if given)."""
+        host = torch.from_numpy(self._step_rows(n))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        if out is None:
+            return host.to(self.device, non_blocking=True)
+        return out.copy_(host, non_blocking=True)
 
     # ------------------------------------------------------- window training
     def train_range(self, start: int, end: int, tick=None):
         """Train steps [start, end) with grid refreshes and batch adaptation.
 
         A refresh runs when ``i % update_den_freq == 0``; the steps up to
-        the next refresh form a window of one shape.  At each window's end
-        the batch shape adapts to the PREVIOUS window's measured demand,
-        whose device-to-host copy finished while this window ran, so the
-        host never waits for the device there.  ``tick(n, n_rays,
-        n_samples_per_ray)``, if given, is called after each window's
-        steps are enqueued.  Returns the last step's main loss.  Under a
-        mesh the ranks check at each window that they hold the same shape,
-        since ranks with diverged shapes would wait on each other forever.
+        the next refresh form a window of one shape, which runs as a CUDA
+        graph replay where `graph_windows` allows (see the module's
+        docstring) and as a loop of ``train_step`` elsewhere.  At each
+        window's end the batch shape adapts to the PREVIOUS window's
+        measured demand, whose device-to-host copy finished while this
+        window ran, so the host never waits for the device there.
+        ``tick(n, n_rays, n_samples_per_ray)``, if given, is called after
+        each window's steps are enqueued; ``self.window_losses`` then holds
+        the window's [n] main losses until the next window.  Returns the
+        last step's main loss.  Under a mesh the ranks check at each window
+        that they hold the same shape, since ranks with diverged shapes
+        would wait on each other forever.
         """
+        return self._train_range(start, end, tick,
+                                 graph_windows(self.device, self.mesh))
+
+    def train_range_eager(self, start: int, end: int, tick=None):
+        """``train_range`` with every window a loop of ``train_step``: the
+        reference that graph windows are held to."""
+        return self._train_range(start, end, tick, False)
+
+    def _train_range(self, start, end, tick, graphs: bool):
         freq = self.sampler.update_den_freq
         loss = None
         i = start
@@ -271,11 +363,14 @@ class Runner:
             self.cfg.m_training_step = i
             if i % freq == 0:
                 self._update_grid(i)
-            # Each window counts its own demand into a fresh counter.
-            self.sampler.state["measured_batch_size"] = torch.zeros(
-                (), dtype=torch.int64, device=self.device)
-            for _ in range(n):
-                loss = self.train_step()
+            # Each window counts its own demand; the copy of the last
+            # window's count to the host was enqueued before this.
+            self.sampler.state["measured_batch_size"].zero_()
+            if graphs:
+                self._train_window(n)
+            else:
+                self._eager_window(n)
+            loss = self.window_losses[-1]
             i += n
             if tick is not None:
                 tick(n, self.sampler.n_rays_per_batch,
@@ -290,7 +385,92 @@ class Runner:
                 self._pending_adapt = (*self._copy_to_host(
                     self.sampler.state["measured_batch_size"]), n,
                     self.sampler.n_rays_per_batch)
-        return loss
+        return None if loss is None else loss.clone()
+
+    def _eager_window(self, n: int):
+        """``n`` steps as a loop of ``train_step`` over one table of their
+        scalars."""
+        table = self._step_table(n)
+        self.window_losses = torch.stack(
+            [self.train_step(row=table[j]) for j in range(n)])
+
+    def _train_window(self, n: int):
+        """``n`` steps as one CUDA graph replay, the counterpart of the JAX
+        runner's ``_train_window``: the key's first window runs eagerly on
+        the capture stream (the warm-up), the second is captured, and every
+        window from the second on replays its graph."""
+        key = (self.sampler.n_rays_per_batch, self.sampler.n_samples_per_ray,
+               n)
+        win = self._train_window_cache.get(key)
+        if win is None and key not in self._warm_windows:
+            stream = self._capture_stream()
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                self._eager_window(n)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            self._warm_windows.add(key)
+            return
+        self._pin_window_state()
+        if win is None:
+            win = self._train_window_cache[key] = self._capture_window(n)
+        self._step_table(n, out=win.table)
+        win.graph.replay()
+        self.optimizer.count += n
+        if self.ema is not None:
+            self.ema_state["steps"] += n
+        for fn, d in win.launches:
+            fn.launches += d
+        self.window_losses = win.losses
+
+    def _capture_stream(self):
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_stream
+
+    def _capture_window(self, n: int) -> _WindowGraph:
+        """Capture ``n`` steps of ``train_step``, each reading its row of a
+        static table, into one graph; the host's step counts and launch
+        counters are put back as they were, since nothing ran."""
+        table = self._step_table(n)
+        losses = torch.zeros((n,), device=self.device)
+        wrappers = [getattr(mod, name) for mod, names in COUNTED_WRAPPERS
+                    for name in names]
+        before = [fn.launches for fn in wrappers]
+        count = self.optimizer.count
+        ema_steps = None if self.ema is None else self.ema_state["steps"]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  stream=self._capture_stream()):
+                for j in range(n):
+                    losses[j] = self.train_step(row=table[j])
+            launches = [(fn, fn.launches - b)
+                        for fn, b in zip(wrappers, before)]
+        finally:
+            for fn, b in zip(wrappers, before):
+                fn.launches = b
+            self.optimizer.count = count
+            if ema_steps is not None:
+                self.ema_state["steps"] = ema_steps
+        # The gradients live in the graph's pool; replays do not set them.
+        for p in self.params:
+            p.grad = None
+        return _WindowGraph(graph, table, losses, launches)
+
+    def _pin_window_state(self):
+        """Point the sampler's state at the tensors the graphs read: the
+        first of each key seen.  A refresh or a load makes new tensors;
+        their values are copied into those."""
+        state = self.sampler.state
+        for k, v in state.items():
+            if not torch.is_tensor(v):
+                continue
+            buf = self._window_state.setdefault(k, v)
+            if buf is not v:
+                buf.copy_(v)
+                state[k] = buf
 
     def _copy_to_host(self, t: torch.Tensor):
         """Start copying a 0-dim device tensor to the host; returns (host
@@ -406,6 +586,10 @@ class Runner:
         model, the sampler, the EMA shadow, the Adam state and ``start``,
         the step that ``train`` resumes at."""
         print("Loading ckpt from:", path, flush=True)
+        # The graphs read the tensors that this replaces.
+        self._train_window_cache.clear()
+        self._warm_windows.clear()
+        self._window_state.clear()
         with open(path, "rb") as f:
             ckpt = pickle.load(f)
         self.model.load_state_dict(jax_params_to_state_dict(ckpt["model"]))

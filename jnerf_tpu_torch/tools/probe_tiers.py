@@ -16,8 +16,10 @@ shapes) it times each tier at the runner's steady shapes:
   optim     the Adam update and the EMA step on fixed gradients
 
 `tools/probe_tiers.py` chains its reps in one ``lax.scan`` because each
-dispatch through its relay was dear; here the reps run eagerly, as the
-runner runs them.  For each tier the final JSON gives the host ms a rep
+dispatch through its relay was dear; here the reps run eagerly, as
+``Runner.train_step`` runs them (``train_range`` replays a window as a
+CUDA graph: ``tools/window_time.py`` times that against the eager loop).
+For each tier the final JSON gives the host ms a rep
 (the median of 4 runs of 16 reps, each ending in a synchronize; one
 refresh window for ``full``) under the tier's name, as
 `tools/probe_tiers.py` does, and beside it, in ms a rep: ``event_ms``

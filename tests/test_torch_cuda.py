@@ -781,3 +781,158 @@ def test_envelope_wrappers_refuse_bad_inputs(dev):
         envelope.row_scatter_add(idx, _randn((32, 6), dev), 64)
     with pytest.raises(ValueError):
         envelope.elem_gather(table, idx.reshape(4, 8), "axis1")
+
+
+# ------------------------------------------------- graph windows (runner)
+# A tiny NGP config: 4 images of 32^2, 256 rays, a 32^3 grid, f8l4 at
+# 2^13 entries, compaction to 1024 kept samples (8192 and use_pallas_mlp:
+# the fused kernels, whose gate takes a multiple of their block).
+WINDOW_CFG = dict(n_images=4, H=32, W=32, n_rays_per_batch=256,
+                  target_batch_size=1 << 12, grid_size=32, nerf_steps=128,
+                  hash_levels=4, hash_features=8, log2_hashmap_size=13)
+WINDOW_KERNELS = {"F": "hash_fwd_kernel", "B": "hash_prep_kernel"}
+
+
+def _window_runner(kind):
+    from jnerf_tpu_torch.runner import Runner
+    from jnerf_tpu_torch.utils.bench_cfg import ngp_synthetic_cfg
+
+    cfg = ngp_synthetic_cfg(**WINDOW_CFG)
+    cfg.update(compacted_batch=1024, march_budget_factor=2)
+    if kind == "fused":
+        cfg.update(use_pallas_mlp=True, compacted_batch=8192,
+                   target_batch_size=1 << 14)
+    if kind == "xor":
+        cfg.update(hash_levels=8, hash_features=2, hash_indexing="xor")
+    runner = Runner(device="cuda")
+    assert runner.model._fused_ok == (kind == "fused")
+    return runner
+
+
+def _window_counters():
+    from jnerf_tpu_torch.runner.runner import COUNTED_WRAPPERS
+
+    return {name: getattr(mod, name) for mod, names in COUNTED_WRAPPERS
+            for name in names}
+
+
+def _training_state(runner):
+    """Every tensor a run carries forward, on the host, as raw bytes."""
+    st = {f"param {i}": p for i, p in enumerate(runner.params)}
+    for i, p in enumerate(runner.params):
+        for k, v in runner.optimizer.state[p].items():
+            st[f"adam {k} {i}"] = v
+    for i, v in enumerate(runner.ema_state["shadow"]):
+        st[f"ema {i}"] = v
+    for k, v in runner.sampler.state.items():
+        if torch.is_tensor(v):
+            st[f"grid {k}"] = v
+    st = {k: v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+          for k, v in st.items()}
+    st["generator"] = runner.generator.get_state()
+    st["counts"] = torch.tensor([
+        runner.optimizer.count, runner.ema_state["steps"],
+        runner.sampler.state["ema_step"], runner.sampler.n_rays_per_batch,
+        runner.sampler.n_samples_per_ray])
+    return st
+
+
+def _run_windows(runner, graph, spans):
+    """Train each (start, end) span, toggling the batch shape where
+    asked; returns the per-step losses and the launch counts."""
+    counters = _window_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    train = runner.train_range if graph else runner.train_range_eager
+    for span in spans:
+        if span == "toggle shape":  # 256 rays <-> 128
+            rays = 384 - runner.sampler.n_rays_per_batch
+            runner.sampler.n_rays_per_batch = rays
+            runner.sampler.n_samples_per_ray = \
+                runner.sampler._samples_for_rays(rays)
+            continue
+        train(*span, tick=lambda *a: losses.append(
+            runner.window_losses.clone()))
+    torch.cuda.synchronize()
+    return torch.cat(losses).cpu(), {k: fn.launches
+                                     for k, fn in counters.items()}
+
+
+def _kernel_counts(fn):
+    """{name: launches} of the CUDA kernels ``fn`` runs, from the
+    profiler."""
+    from collections import Counter
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == cuda and not e.is_user_annotation)
+
+
+@pytest.mark.parametrize("kind", ["plain", "fused", "xor"])
+def test_graph_windows_equal_eager_windows(dev, kind):
+    """From one seed, train_range (graph windows) and train_range_eager
+    (loops of train_step) end in equal bits in every parameter, Adam
+    moment, EMA shadow, grid-state tensor, host count and the generator,
+    and give equal per-step losses and launch counts, across a batch-shape
+    change that takes a second key through warm-up, capture and replay.
+    The replays' counts agree with the profiler's kernel list."""
+    spans = [(0, 16), (16, 32), (32, 48), "toggle shape", (48, 64),
+             (64, 80), (80, 96)]
+    runs = {}
+    for graph in (True, False):
+        runner = _window_runner(kind)
+        losses, launches = _run_windows(runner, graph, spans)
+        runs[graph] = (runner, losses, launches, _training_state(runner))
+    g_runner, g_losses, g_launches, g_state = runs[True]
+    _, e_losses, e_launches, e_state = runs[False]
+    assert len(g_runner._train_window_cache) >= 2, \
+        list(g_runner._train_window_cache)
+    assert g_losses.numel() == 96
+    assert torch.equal(g_losses.view(torch.uint8), e_losses.view(torch.uint8))
+    differ = [k for k in e_state if not torch.equal(g_state[k], e_state[k])]
+    assert not differ, differ
+    assert g_launches == e_launches
+    if kind == "xor":
+        assert g_launches["grad_table_xor"] == 96
+    else:
+        assert g_launches["grad_table"] == 96
+    if kind == "fused":
+        assert g_launches["fused_mlp_bwd"] == 96
+    # One more window (its refresh, then a replay) under the profiler.
+    fwd, bwd = (("encode_xor_fwd", "grad_table_xor") if kind == "xor"
+                else ("encode_fwd", "grad_table"))
+    counters = _window_counters()
+    before = {k: counters[k].launches for k in (fwd, bwd)}
+    names = _kernel_counts(lambda: g_runner.train_range(96, 112))
+    got = {k: counters[k].launches - before[k] for k in (fwd, bwd)}
+    prof = {k: sum(n for name, n in names.items() if pat in name)
+            for k, pat in ((fwd, WINDOW_KERNELS["F"]),
+                           (bwd, WINDOW_KERNELS["B"]))}
+    assert got[bwd] == 16 and got == prof, (got, prof)
+
+
+def test_transmittance_backward_is_torch_cumprods(dev):
+    """The capture-safe cumprod's gradient equals torch.cumprod's, bit for
+    bit, on inputs with no zeros."""
+    from jnerf_tpu_torch.ops.composite import transmittance
+
+    gen = torch.Generator(dev).manual_seed(0)
+    alpha = torch.rand((4096, 128), generator=gen, device=dev)
+    alpha[:, ::7] = 1.0  # factors of 1e-10
+    g = torch.randn((4096, 128), generator=gen, device=dev)
+    grads = []
+    for fn in (transmittance,
+               lambda a: torch.cumprod(1.0 - a + 1e-10, dim=-1)):
+        a = alpha.clone().requires_grad_(True)
+        out = fn(a)
+        out.backward(g)
+        grads.append((out.detach(), a.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
