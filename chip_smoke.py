@@ -7,12 +7,15 @@ nonzero, printing no result, without them.  Every NGP training run below
 goes through ``Runner.train_range``, which on the card runs each refresh
 window as the replay of a CUDA graph after an eager warm-up window of its
 shape (the launch counters count the replays' launches); where a phase
-needs a step's own tensors it trains that step eagerly.  Phases, each of
+needs a step's own tensors it trains that step eagerly.  The NeuS,
+Mip-NeRF and Plenoxels runners' ``train`` run their windows (up to 16
+steps, cut as their JAX runners cut them) the same way.  Phases, each of
 which raises on failure:
 
 1. the card: its name and power limit (nvidia-smi);
 2. build the CUDA kernels from jnerf_tpu_torch/csrc (hash_encode.cu,
-   fused_mlp.cu and envelope.cu) and the host-side C++ cores (marching tetrahedra, the
+   fused_mlp.cu, envelope.cu and voxel_grid.cu) and the host-side C++
+   cores (marching tetrahedra, the
    JPEG codec, the MPEG-4 encoder), all in parallel, with ptxas' register
    and spill lines;
 3. each kernel against its plain PyTorch twin on the card at the main
@@ -81,8 +84,9 @@ which raises on failure:
    with 257 outputs, background NeRF 8 x 256, colour 4 x 256; 512 rays of
    64 + 64 + 32 samples) through the CLI (--type mesh) on a DTU-format
    scene of 32 images of 400 x 300 written by the port: the
-   geometric-init mesh at 128^3, --task train for 800 steps (a checkpoint
-   at the end; f32, TF32 off), then --task validate_mesh at 512^3.  The
+   geometric-init mesh at 128^3, --task train for 800 steps through graph
+   windows (a checkpoint at the end; f32, TF32 off), then --task
+   validate_mesh at 512^3.  The
    colour loss of the last 100 steps must be at most half that of the
    first 100, the eikonal term finite, and the trained mesh's vertices
    closer to the analytic object, on average, than the init mesh's; no
@@ -91,7 +95,8 @@ which raises on failure:
    trunk, skip after layer 4, 1 x 128 colour branch, 2 levels x 128
    samples, 4096 rays; f32, TF32 off) through the CLI on phase 8's scene:
    one shrunk step on the card against the CPU, --task train for 384
-   steps, then --task test from params.pkl, whose PSNR must clear that of
+   steps through graph windows, then --task test from params.pkl, whose
+   PSNR must clear that of
    predicting black everywhere by 3 dB; no repo kernel runs;
 14. Plenoxels: projects/svox2/configs/svox2_base.py at full width (256^3,
    basis 9, 5000 rays, step 0.5) through the CLI on phase 8's scene: a
@@ -99,8 +104,10 @@ which raises on failure:
    dense steps at 256^3 (the test PSNR must clear the all-white
    background's by 1 dB), the upsample to a sparse 512^3 grid and 128
    sparse steps (the active cells and the tables' size bounded, the MSE
-   below 0.2), and the grid's .npz saved, timed and loaded back; no repo
-   kernel runs;
+   below 0.2), all through graph windows, and the grid's .npz saved, timed
+   and loaded back; kernel V (the grid gradient) runs once a step and no
+   other repo kernel runs, and one step's kernel V inputs of the trained
+   dense and sparse grids are kept for phase 23;
 15. pixelNeRF (`python -m jnerf_tpu_torch.projects.pixelnerf.main`, its
    main in this process) at the JAX script's widths (512-channel encoder,
    512-wide trunk, 3 references of 100^2, 2048 rays x 64 samples; f32, TF32
@@ -187,9 +194,24 @@ which raises on failure:
    kernels F and B (and F-MLP) launched as often as the counters say.
    Then `python -m jnerf_tpu_torch.tools.window_time` on the headline:
    host ms, kernel ms, busy share, launches a step and peak memory of
-   each path at the adapted shape.
+   each path at the adapted shape;
+23. the families' windows: NeuS, Mip-NeRF and Plenoxels (dense 256^3,
+   then sparse 512^3 after the upsample) at full width on the scenes of
+   phases 12-14, each trained for two windows a grid through graphs twice
+   and through the eager loop once from one seed; the three runs must end
+   in equal bits (parameters, optimizer state and counts, grid buffers,
+   the generator, every step's loss) with equal launch counts (kernel V
+   once a Plenoxels step).  One more window of the graph run and of the
+   eager run gives each path's host ms and kernel ms a step, busy share
+   and peak memory; one more eager window runs under
+   torch.use_deterministic_algorithms(warn_only) and the ops it names are
+   printed.  pixelNeRF at the script's widths trains a few steps twice
+   from one seed with equal bits.  Kernel V is held to its plain version
+   on CPU copies bit for bit, to a second launch and inside guard zones
+   on phase 14's dense and sparse inputs, and timed beside the plain
+   version and index_add_ of the materialized products.
 
-Each of phases 9-22 prints its time and its peak device memory.  To make
+Each of phases 9-23 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
 steps (was 1000) and phase 13 for 384 (was 512).
 
@@ -1258,10 +1280,12 @@ def run_cli(torch, run_net, hash_nbr, hash_xor, fused_mlp, tmp):
 
 def launch_counters(hash_nbr, hash_xor, fused_mlp):
     """Every kernel wrapper's launch counter, by kernel."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
     return {"F": hash_nbr.encode_fwd, "B": hash_nbr.grad_table,
             "F xor": hash_xor.encode_xor_fwd, "B xor": hash_xor.grad_table_xor,
             "F-MLP": fused_mlp.fused_mlp_fwd, "B-MLP": fused_mlp.fused_mlp_bwd,
-            "D-MLP": fused_mlp.fused_density_mlp}
+            "D-MLP": fused_mlp.fused_density_mlp, "V": voxel_grid.corner_grad}
 
 
 def reset_counts(counters):
@@ -1593,29 +1617,34 @@ def run_neus(torch, run_net, counters, tmp):
         world_space=True, resolution=NEUS_INIT_RES))
     del fresh, net
 
-    losses, starts = [], []
-    orig_step = NeuSRunner.train_step
+    losses, marks = [], []
+    orig_window = NeuSRunner.train_window
 
-    def train_step(self, *a, **k):
-        starts.append(time.perf_counter())
-        out = orig_step(self, *a, **k)
-        losses.append(out)
+    def train_window(self, n, graph=None):
+        out = orig_window(self, n, graph)
+        losses.append(out.clone())
+        end = self.iter_step + n
+        if end % self.report_freq == 0:  # its report line waits anyway
+            torch.cuda.synchronize()
+            marks.append((end, time.perf_counter()))
         return out
 
     argv = ["--config-file", cfg, "--device", "cuda", "--type", "mesh"]
     reset_counts(counters)
-    NeuSRunner.train_step = train_step
+    NeuSRunner.train_window = train_window
     try:
         t0 = time.perf_counter()
         runner, _ = run_net.main(argv + ["--task", "train"])
         torch.cuda.synchronize()
         train_task_s = time.perf_counter() - t0
+        graphs = len(runner.windows.cache)
     finally:
-        NeuSRunner.train_step = orig_step
-    hist = torch.stack(losses).cpu()
-    # Report lines every 100 steps wait for the device, so the host clock
-    # between the starts of steps 100 and N-1 follows the device.
-    steps_per_s = (len(starts) - 101) / (starts[-1] - starts[100])
+        NeuSRunner.train_window = orig_window
+    hist = torch.cat(losses).cpu()
+    # Report lines every 100 steps wait for the device: the rate between
+    # the first and the last report.
+    (s0, t_0), (s1, t_1) = marks[0], marks[-1]
+    steps_per_s = (s1 - s0) / (t_1 - t_0)
     del runner
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1629,9 +1658,10 @@ def run_neus(torch, run_net, counters, tmp):
           f"{NEUS_W}x{NEUS_H} written in {scene_s:.3f} s; SDF layers "
           f"{shapes['sdf']}, background NeRF {shapes['nerf']} layers, colour "
           f"{shapes['color']}; {r.n_samples} + {r.n_importance} + "
-          f"{r.n_outside} samples, {again.batch_size} rays; {len(losses)} "
-          f"steps, train task {train_task_s:.3f} s, {steps_per_s:.3f} steps/s "
-          f"(steps 100-{len(losses) - 1}); colour loss first 100 {first:.5f}, "
+          f"{r.n_outside} samples, {again.batch_size} rays; {len(hist)} "
+          f"steps in {len(losses)} windows ({graphs} graphs), train task "
+          f"{train_task_s:.3f} s, {steps_per_s:.3f} steps/s (steps "
+          f"{s0}-{s1}); colour loss first 100 {first:.5f}, "
           f"last 100 {last:.5f}; eikonal last {float(eik[-1]):.5f}, finite "
           f"{bool(torch.isfinite(eik).all())}; validate_mesh at 512^3 "
           f"{mesh_s:.3f} s (iter {again.iter_step}): {n_v} vertices, mean "
@@ -1644,9 +1674,10 @@ def run_neus(torch, run_net, counters, tmp):
             or again.batch_size != 512:
         raise SystemExit(f"neus_womask.py did not build its full width: "
                          f"{shapes}")
-    if len(losses) != NEUS_STEPS or again.iter_step != NEUS_STEPS:
-        raise SystemExit(f"NeuS ran {len(losses)} steps, validate_mesh read "
-                         f"iter {again.iter_step}")
+    if len(hist) != NEUS_STEPS or again.iter_step != NEUS_STEPS \
+            or graphs < 1:
+        raise SystemExit(f"NeuS ran {len(hist)} steps ({graphs} graphs), "
+                         f"validate_mesh read iter {again.iter_step}")
     if not (last <= 0.5 * first and bool(torch.isfinite(eik).all())
             and bool(torch.isfinite(hist).all())):
         raise SystemExit(f"NeuS colour loss {first:.5f} -> {last:.5f}, "
@@ -1658,7 +1689,7 @@ def run_neus(torch, run_net, counters, tmp):
     if any(counts.values()):
         raise SystemExit(f"NeuS launched a repo kernel: {counts}")
     secs, peak = phase_end(torch, "NeuS", t_phase)
-    return dict(steps=NEUS_STEPS, steps_per_s=steps_per_s,
+    return dict(steps=NEUS_STEPS, steps_per_s=steps_per_s, scene=scene,
                 color_loss_first=first, color_loss_last=last,
                 validate_mesh_s=mesh_s, vertices=n_v, mean_abs_sdf=dist,
                 init_mean_abs_sdf=init_d, phase_s=secs, peak_mib=peak)
@@ -1764,11 +1795,11 @@ def run_mip(torch, run_net, counters, scene, tmp):
         tot_train_steps = {MIP_STEPS}
     """)
     losses, train_s = [], [0.0]
-    orig_step, orig_train = MipRunner.train_step, MipRunner.train
+    orig_window, orig_train = MipRunner.train_window, MipRunner.train
 
-    def train_step(self, *a, **k):
-        out = orig_step(self, *a, **k)
-        losses.append(out[0])
+    def train_window(self, n, graph=None):
+        out = orig_window(self, n, graph)
+        losses.append(out.clone())
         return out
 
     def train(self):
@@ -1781,13 +1812,14 @@ def run_mip(torch, run_net, counters, scene, tmp):
 
     argv = ["--config-file", cfg, "--device", "cuda"]
     reset_counts(counters)
-    MipRunner.train_step, MipRunner.train = train_step, train
+    MipRunner.train_window, MipRunner.train = train_window, train
     try:
         runner, last = run_net.main(argv + ["--task", "train"])
     finally:
-        MipRunner.train_step, MipRunner.train = orig_step, orig_train
+        MipRunner.train_window, MipRunner.train = orig_window, orig_train
     train_peak = torch.cuda.max_memory_allocated() / 2**20
-    hist = torch.stack(losses).cpu()
+    graphs = len(runner.windows.cache)
+    hist = torch.cat(losses).cpu()
     net, s = runner.model, runner.sampler
     trunk = [tuple(layer.w.shape) for layer in net.trunk]
     cond = [tuple(layer.w.shape) for layer in net.condition]
@@ -1805,8 +1837,9 @@ def run_mip(torch, run_net, counters, scene, tmp):
           f"{again.num_levels} levels x {s.num_samples} samples, "
           f"{again.dataset['train'].batch_size} rays, lr "
           f"{again.schedule_wrap.init_lr} (at step {MIP_STEPS}: "
-          f"{again.schedule_wrap.schedule(MIP_STEPS):.3e}); {len(losses)} "
-          f"steps in {train_s[0]:.3f} s = {len(losses) / train_s[0]:.3f} "
+          f"{again.schedule_wrap.schedule(MIP_STEPS):.3e}); {len(hist)} "
+          f"steps in {len(losses)} windows ({graphs} graphs) in "
+          f"{train_s[0]:.3f} s = {len(hist) / train_s[0]:.3f} "
           f"steps/s, peak memory {train_peak:.1f} MiB; loss first 64 "
           f"{first:.5f}, last 64 {end:.5f}, last {last:.5f}; --task test "
           f"({ds.n_images} images, {test_s:.3f} s, iter {again.start}): TOTAL "
@@ -1816,9 +1849,9 @@ def run_mip(torch, run_net, counters, scene, tmp):
             or cond != [(283, 128)] or s.num_samples != 128 \
             or again.dataset["train"].batch_size != 4096:
         raise SystemExit(f"mip_base.py did not build its full width: {trunk}")
-    if len(losses) != MIP_STEPS or again.start != MIP_STEPS \
+    if len(hist) != MIP_STEPS or again.start != MIP_STEPS or graphs < 1 \
             or not bool(torch.isfinite(hist).all()):
-        raise SystemExit(f"Mip-NeRF ran {len(losses)} steps (test read "
+        raise SystemExit(f"Mip-NeRF ran {len(hist)} steps (test read "
                          f"{again.start}), losses finite "
                          f"{bool(torch.isfinite(hist).all())}")
     if any(counts.values()):
@@ -1847,8 +1880,8 @@ def check_svox2_small_steps(torch, scene, tmp):
     threshold of 30,000 cells, one sparse step (its TV rows passed in), on
     the card and on the CPU from the same random grid and batch: the MSE
     at rtol SVOX_SMALL_RTOL and each table's gradient within
-    SVOX_SMALL_RTOL of its largest entry (the corner scatter sums in the
-    atomics' order on the card), and equal links."""
+    SVOX_SMALL_RTOL of its largest entry (the upstream gradients round in
+    other orders on the card), and equal links."""
     import numpy as np
 
     from jnerf_tpu_torch.runner import Svox2Runner
@@ -1925,7 +1958,10 @@ def run_svox2(torch, run_net, counters, scene, tmp):
     dB; after the upsample 0 < n_active < 512^3 / 4 and cap * 28 * 4 < 6e9
     (as in tests/test_svox2.py); the sparse MSE is finite and below
     SVOX_SPARSE_MSE; the .npz round trip holds density_data within f16's
-    rounding (atol 2e-3, rtol 2^-11).  No repo kernel runs on this path."""
+    rounding (atol 2e-3, rtol 2^-11).  Every step runs as a graph window
+    but each grid's first (its warm-up) and launches kernel V once, and no
+    other repo kernel runs; one step's kernel V inputs of the trained dense
+    and sparse grids are kept for phase 23."""
     import numpy as np
 
     from jnerf_tpu_torch.models.networks import SparseGrid
@@ -1968,16 +2004,21 @@ def run_svox2(torch, run_net, counters, scene, tmp):
         marks["psnr"] = self.eval_psnr()
         dens = self.grid.density.detach().reshape(-1)
         marks["max_density"] = float(dens.max())
-        if marks["max_density"] <= self.grid.density_thresh:
-            self.grid.density_thresh = float(
-                torch.topk(dens, dens.numel() // 100).values[-1])
+        thresh = self.grid.density_thresh
+        if lower_density_thresh(torch, self) != thresh:
             marks["lowered"] = self.grid.density_thresh
+        marks["graphs dense"] = len(self.windows.cache)
+        marks["voxel dense"] = capture_voxel_inputs(torch, self,
+                                                    self.batch_size)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         mse = orig_train(self, n_iters - self.upsamp_every)
         torch.cuda.synchronize()
         marks["sparse_s"] = time.perf_counter() - t0
         marks["sparse_peak"] = torch.cuda.max_memory_allocated() / 2**20
+        marks["graphs sparse"] = len(self.windows.cache)
+        marks["voxel sparse"] = capture_voxel_inputs(torch, self,
+                                                     self.batch_size)
         return mse
 
     reset_counts(counters)
@@ -2025,7 +2066,9 @@ def run_svox2(torch, run_net, counters, scene, tmp):
           f"peak memory {marks['sparse_peak']:.1f} MiB, last MSE {mse:.5f}; "
           f".npz save {save_s:.3f} s ({os.path.getsize(path) / 2**20:.1f} MiB), "
           f"load {load_s:.3f} s, density_data max |diff| {npz_err:.2e}; "
-          f"kernel launches {counts}, on {card_line()}", flush=True)
+          f"graphs dense {marks['graphs dense']}, sparse "
+          f"{marks['graphs sparse']}; kernel launches {counts}, on "
+          f"{card_line()}", flush=True)
     if runner.gstep != SVOX_ITERS or not grid.sparse \
             or marks["dense_reso"] != (256, 256, 256) \
             or grid.spec.reso != (512, 512, 512) or grid.spec.basis_dim != 9 \
@@ -2043,13 +2086,19 @@ def run_svox2(torch, run_net, counters, scene, tmp):
     if not npz_ok:
         raise SystemExit(f"the .npz round trip moved density_data by "
                          f"{npz_err}")
-    if any(counts.values()):
-        raise SystemExit(f"Plenoxels launched a repo kernel: {counts}")
+    if counts.pop("V") != SVOX_ITERS or any(counts.values()) \
+            or marks["graphs dense"] < 1 or marks["graphs sparse"] < 1:
+        raise SystemExit(f"Plenoxels did not launch kernel V once a step, "
+                         f"launched another kernel ({counts}), or ran no "
+                         f"window as a graph")
     secs, peak = phase_end(torch, "Plenoxels", t_phase)
     return dict(dense_steps_per_s=dense_steps / marks["dense_s"],
                 sparse_steps_per_s=sparse_steps / marks["sparse_s"],
                 psnr=marks["psnr"], white_psnr=white, n_active=n_active,
-                cap=cap, save_s=save_s, phase_s=secs, peak_mib=peak)
+                cap=cap, save_s=save_s, phase_s=secs, peak_mib=peak,
+                launches=SVOX_ITERS,
+                voxel={"dense 256^3": marks["voxel dense"],
+                       "sparse 512^3": marks["voxel sparse"]})
 
 
 def mini_small_step(torch, name, make, loss_of):
@@ -3008,7 +3057,7 @@ def run_repeat(torch, Runner, ngp_synthetic_cfg, hash_nbr, hash_xor):
             runner = Runner(device="cuda")
             kernel.launches = 0
             losses = train_logged(torch, runner, steps)
-            if not runner._train_window_cache:
+            if not runner.windows.cache:
                 raise SystemExit(f"repeat [{name}]: no window ran as a graph")
             runs.append((losses, training_state(torch, runner),
                          kernel.launches))
@@ -3102,7 +3151,7 @@ def run_window_graphs(torch, Runner, ngp_synthetic_cfg, counters):
         for k, pat in PROFILED_KERNELS.items():
             want[pat] = want.get(pat, 0) + window[k]
             prof[pat] = sum(n for kn, n in names.items() if pat in kn)
-        graphs = len(g_runner._train_window_cache)
+        graphs = len(g_runner.windows.cache)
         b = "B xor" if name.startswith("xor") else "B"
         print(f"graph windows [{name}]: {steps} steps each way from seed 42; "
               f"{len(e_state)} state tensors and {e_loss.numel()} losses "
@@ -3135,6 +3184,429 @@ def run_window_graphs(torch, Runner, ngp_synthetic_cfg, counters):
                 peak_mib=peak)
 
 
+# Phase 23: the families' windows.  NeuS (neus_womask.py), Mip-NeRF
+# (mip_base.py) and Plenoxels (svox2_base.py, dense at 256^3, then sparse
+# at 512^3 after the upsample) at full width on the scenes of phases 12-14,
+# each trained for FAMILY_WINDOWS windows a grid (the first a key's
+# warm-up, the second its capture and replay) through graphs twice and
+# through the eager loop once, from one seed: the three runs must end in
+# the same bits (every parameter, optimizer state and count, the grid's
+# buffers, the generator and every step's loss) with the same launch
+# counts.  Then one more window of the graph run and of the eager run
+# each on the host clock (sync to sync) and one under torch.profiler:
+# host and kernel ms a step, the busy share and peak memory of each path.
+# pixelNeRF at the script's widths runs PIX_REPEAT_VIEWS training views
+# (a few steps) twice with equal bits.  torch.use_deterministic_algorithms
+# (warn_only) is switched on for one more eager window of each family and
+# one pixelNeRF step and off again: the ops it names are printed.  Kernel V
+# is held to its plain version on CPU copies bit for bit (and to a second
+# launch, and inside guard zones) on one step's inputs of phase 14's dense
+# and sparse grids, and timed beside it and index_add_.
+FAMILY_WINDOWS = 2
+PIX_REPEAT_VIEWS = 2  # 2 x 100^2 rays: 9 steps of 2048 rays
+VOXEL_GUARD = 4096
+
+
+def voxel_work(n, corners, n_rows, channels, kept) -> dict:
+    """Kernel V: idx [n, corners] int64, w [n, corners] and the g's [n,
+    channels] f32 in, the whole gradients [n_rows, channels] f32 out; a
+    multiply and an add a kept item and channel."""
+    nbytes = 12 * n * corners + 4 * n * channels + 4 * n_rows * channels
+    return work(nbytes, 2 * kept * channels, F32_FLOP_PER_S)
+
+
+def capture_voxel_inputs(torch, runner, n_rays):
+    """One MSE backward of ``runner``'s grid on ``n_rays`` rays of its
+    training pool in its current order (no update, the batch cursor
+    untouched), with kernel V's inputs recorded: (idx, w, g's, n_rows) on
+    the CPU."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    ds = runner.dataset["train"]
+    sel = ds._perm[:n_rays]  # rays from every image, as a batch draws them
+    ro, rd, rgb = (torch.from_numpy(a[sel]).cuda()
+                   for a in (ds._origins, ds._dirs, ds._rgbs))
+    seen = []
+    orig = voxel_grid.corner_grad
+
+    def corner_grad(idx, w, grads, n_rows):
+        seen.append((idx.cpu(), w.cpu(), [g.cpu() for g in grads], n_rows))
+        return orig(idx, w, grads, n_rows)
+
+    # The launch bumps this wrapper's count, not the path's.
+    corner_grad.launches = 0
+    voxel_grid.corner_grad = corner_grad
+    try:
+        rgb_out = runner.grid.volume_render(ro, rd, **runner.render_kwargs())
+        torch.mean((rgb_out - rgb) ** 2).backward()
+    finally:
+        voxel_grid.corner_grad = orig
+    for p in runner.grid.tables().values():
+        p.grad = None
+    (got,) = seen
+    return got
+
+
+def check_voxel_kernel(torch, name, inputs):
+    """Kernel V on one step's inputs: bit for bit its plain version on CPU
+    copies and a second launch, its plan the plain plan, a launch inside
+    guard zones writing nothing outside them; timed beside the plain
+    version on the card and index_add_ of the materialized products (the
+    scatter alone), with its bound."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    idx_c, w_c, g_c, n_rows = inputs
+    idx, w = idx_c.cuda(), w_c.cuda()
+    grads = [g.cuda() for g in g_c]
+    n, K = idx.shape
+    C = sum(g.shape[1] for g in grads)
+    want = voxel_grid.corner_grad_plain(idx_c, w_c, g_c, n_rows)
+    got = voxel_grid.corner_grad(idx, w, grads, n_rows)
+    again = voxel_grid.corner_grad(idx, w, grads, n_rows)
+    voxel_grid.corner_grad.launches -= 2  # checks, not the path
+    torch.cuda.synchronize()
+    same = all(same_bits(torch, a.cpu(), b) for a, b in zip(got, want))
+    repeat = all(same_bits(torch, a, b) for a, b in zip(got, again))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want))
+    start, order = voxel_grid.corner_grad_plan(idx, w, grads, n_rows)
+    p_start, p_order = voxel_grid.corner_grad_plan_plain(idx_c, w_c, g_c,
+                                                         n_rows)
+    plan_ok = torch.equal(start.cpu(), p_start) and torch.equal(order.cpu(),
+                                                               p_order)
+    kept = int(p_start[-1])
+    del want, again, start, order, p_start, p_order
+    bufs = []
+
+    def guarded(size, dtype):
+        buf = torch.full((size + 2 * VOXEL_GUARD,), -7, dtype=dtype,
+                         device="cuda")
+        bufs.append(buf)
+        return buf[VOXEL_GUARD:VOXEL_GUARD + size]
+
+    work_g = guarded(voxel_grid.grad_layout(n, K, n_rows)[0], torch.int32)
+    outs_g = [guarded(n_rows * g.shape[1], torch.float32) for g in grads]
+    voxel_grid._launch_grad(idx, w, grads, n_rows, outs_g, work_g, False)
+    torch.cuda.synchronize()
+    guards_ok = all(bool((b[:VOXEL_GUARD] == -7).all()
+                         and (b[-VOXEL_GUARD:] == -7).all()) for b in bufs)
+    guarded_same = all(same_bits(torch, o.view(a.shape), a)
+                       for o, a in zip(outs_g, got))
+    del bufs, work_g, outs_g, got
+    # index_add_ of the products, materialized once outside the timing.
+    keep = voxel_grid._live_items(idx, w, grads, n_rows)
+    items = torch.nonzero(keep).squeeze(1)
+    rows = idx.reshape(-1)[items]
+    vals = w.reshape(-1)[items, None] * torch.cat(grads, 1)[items // K]
+    del keep, items
+
+    def library():
+        torch.zeros((n_rows, C), device="cuda").index_add_(0, rows, vals)
+
+    ms, plain_ms, four = time_pair(
+        lambda: voxel_grid.corner_grad(idx, w, grads, n_rows),
+        lambda: voxel_grid.corner_grad_plain(idx, w, grads, n_rows))
+    voxel_grid.corner_grad.launches = 0  # timing, not the path
+    library_ms = cuda_ms(library, iters=10)
+    del rows, vals
+    stats = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, err=err,
+                 n=n, n_rows=n_rows, kept=kept,
+                 **voxel_work(n, K, n_rows, C, kept))
+    print(f"kernel V [{name}]: {n} samples x {K} corners into {n_rows} rows "
+          f"x {C} channels, {kept} items kept; bit for bit the plain "
+          f"version on CPU copies {same} (max |diff| {err:.3e}), a second "
+          f"launch {repeat}, the plan {plan_ok}, inside guard zones "
+          f"{guards_ok and guarded_same}; {ms:.4f} ms (plain {plain_ms:.4f}, "
+          f"index_add_ {library_ms:.4f}, bound {stats['bound_ms']:.4f} by "
+          f"{stats['bound_by']}; runs {[round(x, 4) for x in four]})",
+          flush=True)
+    if not (same and repeat and plan_ok and guards_ok and guarded_same):
+        raise SystemExit(f"kernel V [{name}] disagrees with its plain "
+                         f"version, a second launch, its plan or its "
+                         f"buffers")
+    return stats
+
+
+def family_state(torch, runner):
+    """Every tensor a family's run carries forward, on the host: the
+    parameters (the grid's tables and buffers), the optimizer's state and
+    counts, the step and the generator's state."""
+    if hasattr(runner, "grid"):
+        named = dict(runner.grid.tables())
+        named.update({f"buffer {k}": v for k, v in runner.grid.named_buffers()})
+        named.update({f"opt {k}": v for k, v in runner.opt_state.items()})
+        counts = [runner.gstep]
+    else:
+        named = {f"param {i}": p for i, p in enumerate(runner.params)}
+        for i, p in enumerate(runner.params):
+            for k, v in runner.optimizer.state.get(p, {}).items():
+                named[f"adam {k} {i}"] = v
+        counts = [runner.optimizer.count,
+                  getattr(runner, "iter_step", getattr(runner, "start", 0))]
+    st = {k: v.detach().cpu() for k, v in named.items()}
+    st["counts"] = torch.tensor(counts)
+    st["generator"] = runner.generator.get_state()
+    return st
+
+
+def log_windows(runner, losses):
+    """Record each window's losses (``train_window``'s output) in
+    ``losses``."""
+    orig = runner.train_window
+
+    def train_window(n, graph=None):
+        out = orig(n, graph)
+        losses.append(out.clone())
+        return out
+
+    runner.train_window = train_window
+
+
+def lower_density_thresh(torch, runner):
+    """density_thresh as phase 14 sets it: the config's unless no cell of
+    the dense grid reaches it, else the grid's 99th-percentile density;
+    returns the value."""
+    dens = runner.grid.density.detach().reshape(-1)
+    if float(dens.max()) <= runner.grid.density_thresh:
+        runner.grid.density_thresh = float(
+            torch.topk(dens, dens.numel() // 100).values[-1])
+    return runner.grid.density_thresh
+
+
+def family_specs(torch, tmp, neus_scene, scene):
+    """{name: (make() -> runner, train(runner, graph), more(runner, graph),
+    steps a run)} of phase 23's three families at full width."""
+    from jnerf_tpu_torch.runner import MipRunner, NeuSRunner, Svox2Runner
+    from jnerf_tpu_torch.utils.config import init_cfg
+
+    steps = 16 * FAMILY_WINDOWS
+    neus_cfg = write_cfg(os.path.join(tmp, "cfg_neus_w.py"),
+                         "neus/configs/neus_womask.py", f"""\
+        dataset = dict(dataset_dir={neus_scene!r})
+        base_exp_dir = {os.path.join(tmp, "neus_w")!r}
+        end_iter = {steps}
+        report_freq = 16
+        save_freq = 1000000
+        val_freq = 1000000
+        val_mesh_freq = 1000000
+    """)
+    mip_cfg = write_cfg(os.path.join(tmp, "cfg_mip_w.py"),
+                        "mipnerf/configs/mip_base.py", f"""\
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root_dir=dataset_dir),
+                       val=dict(root_dir=dataset_dir),
+                       test=dict(root_dir=dataset_dir))
+        log_dir = {os.path.join(tmp, "logs_mip_w")!r}
+        tot_train_steps = {steps}
+    """)
+    svox_cfg = write_cfg(os.path.join(tmp, "cfg_svox2_w.py"),
+                         "svox2/configs/svox2_base.py", f"""\
+        dataset_dir = {scene!r}
+        dataset = dict(train=dict(root=dataset_dir, split='train'),
+                       test=dict(root=dataset_dir, split='test'))
+        log_dir = {os.path.join(tmp, "logs_svox2_w")!r}
+        upsamp_every = {steps}
+        lr_sigma_delay_steps = 0
+        lr_sigma_delay_mult = 1.0
+    """)
+
+    def make(cls, cfg):
+        def build():
+            init_cfg(cfg)
+            return cls(device="cuda")
+        return build
+
+    def neus_more(r, graph):
+        r.train_window(16, graph)
+        r.iter_step += 16
+
+    def mip_more(r, graph):
+        n = 16
+        r.train_window(n, graph)
+        r.start += n
+
+    def svox_train(r, graph):
+        r.train(steps, graph=graph)
+        lower_density_thresh(torch, r)
+        r.train(steps, graph=graph)  # the upsample, then sparse windows
+
+    def svox_more(r, graph):
+        r.train_window(16, graph)
+        r.gstep += 16
+
+    return {
+        "NeuS": (make(NeuSRunner, neus_cfg),
+                 lambda r, graph: r.train(graph=graph), neus_more, steps),
+        "Mip-NeRF": (make(MipRunner, mip_cfg),
+                     lambda r, graph: r.train(graph=graph), mip_more, steps),
+        "Plenoxels": (make(Svox2Runner, svox_cfg), svox_train, svox_more,
+                      2 * steps),
+    }
+
+
+def deterministic_probe(torch, fn):
+    """The warnings of torch.use_deterministic_algorithms(True,
+    warn_only=True) while ``fn`` runs (switched off after)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0][:160] for w in seen})
+
+
+def check_probe(torch):
+    """The deterministic-mode probe must name a known nondeterministic op
+    (``put_`` without accumulate on the card, which has no deterministic
+    variant), or its silence on the families says nothing.  Ops that have
+    one (index_add_, index_put_ with accumulate, scatter_add_) switch to it
+    under the mode without a word: the repeats are the check for those."""
+    t = torch.zeros(8, device="cuda")
+    idx = torch.zeros(4, dtype=torch.int64, device="cuda")
+    vals = torch.arange(4, dtype=torch.float32, device="cuda")
+    named = deterministic_probe(torch, lambda: t.put_(idx, vals))
+    if not named:
+        raise SystemExit("the deterministic-mode probe names nothing for "
+                         "put_ on the card")
+    return named
+
+
+def time_window(torch, fn):
+    """(host ms, kernel ms, kernel launches) of one window ``fn``: the
+    host clock from a synchronize to a synchronize, then the same window
+    again under the profiler for the kernels."""
+    from jnerf_tpu_torch.tools.tool_util import kernel_time
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    kms, nk = kernel_time(fn, 1, torch.device("cuda"))
+    return host, kms, nk
+
+
+def run_family_windows(torch, counters, tmp, neus_scene, scene, voxel_inputs):
+    """Phase 23 (see above).  Returns each family's launches and timing,
+    the pixelNeRF repeat, the probe's findings and kernel V's stats."""
+    import gc
+
+    t_phase = phase_start(torch)
+    out = {"families": {}, "probe": {}}
+    print(f"deterministic-mode probe on put_: {check_probe(torch)}",
+          flush=True)
+    for name, (make, train, more, steps) in family_specs(
+            torch, tmp, neus_scene, scene).items():
+        runs = []
+        for path in ("graph", "graph again", "eager"):
+            graph = path != "eager"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            runner = make()
+            losses = []
+            log_windows(runner, losses)
+            reset_counts(counters)
+            train(runner, graph)
+            torch.cuda.synchronize()
+            trained = torch.cat(losses).cpu()
+            state = family_state(torch, runner)
+            counts = read_counts(counters)
+            timing = None
+            if path != "graph again":
+                n_ms = 16
+                host, kms, nk = time_window(torch, lambda: more(runner, graph))
+                timing = dict(host_ms=host / n_ms, kernel_ms=kms / n_ms,
+                              busy=kms / host, launches=nk / n_ms)
+                if not graph:
+                    out["probe"][name] = deterministic_probe(
+                        torch, lambda: more(runner, False))
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            graphs = len(runner.windows.cache)
+            runs.append(dict(losses=trained, state=state,
+                             counts=counts, timing=timing, peak_mib=peak,
+                             graphs=graphs))
+            del runner, losses
+        g, g2, e = runs
+        differ = {}
+        for label, other in (("graph again", g2), ("eager", e)):
+            d = [k for k in g["state"]
+                 if k not in other["state"]
+                 or not same_bits(torch, g["state"][k], other["state"][k])]
+            if not same_bits(torch, g["losses"], other["losses"]):
+                d.append("losses")
+            if g["counts"] != other["counts"]:
+                d.append("launches")
+            differ[label] = d
+        line = {p: dict(r["timing"], peak_mib=r["peak_mib"])
+                for p, r in (("graph", g), ("eager", e))}
+        print(f"family windows [{name}]: {g['losses'].shape[0]} steps a run "
+              f"from one seed, {len(g['state'])} state tensors and the "
+              f"losses compared; graph vs graph differ "
+              f"{differ['graph again'][:8]}, graph vs eager differ "
+              f"{differ['eager'][:8]}; {g['graphs']} graphs; launches "
+              f"{g['counts']}; final loss "
+              f"{g['losses'].reshape(steps, -1)[-1, 0]:.8f}; "
+              + "; ".join(
+                  f"{p}: {t['host_ms']:.4f} ms host a step "
+                  f"({1e3 / t['host_ms']:.3f} steps/s), kernels "
+                  f"{t['kernel_ms']:.4f} ms ({t['launches']:.1f} launches), "
+                  f"busy {t['busy']:.4f}, peak {t['peak_mib']:.1f} MiB"
+                  for p, t in line.items())
+              + f"; deterministic-mode probe: {out['probe'][name]}; on "
+              f"{card_line()}", flush=True)
+        if differ["graph again"] or differ["eager"] or g["graphs"] < 1 \
+                or g["losses"].shape[0] != steps \
+                or (name == "Plenoxels" and g["counts"]["V"] != steps):
+            raise SystemExit(f"family windows [{name}]: the runs differ "
+                             f"({differ}), {g['graphs']} graphs, "
+                             f"{g['losses'].shape[0]} steps, launches "
+                             f"{g['counts']}")
+        out["families"][name] = dict(launches=g["counts"], **line)
+        del runs, g, g2, e
+    out["pixelnerf"] = pixelnerf_repeat(torch)
+    out["voxel"] = {k: check_voxel_kernel(torch, k, v)
+                    for k, v in voxel_inputs.items()}
+    secs, peak = phase_end(torch, "family windows", t_phase)
+    out.update(phase_s=secs, peak_mib=peak)
+    return out
+
+
+def pixelnerf_repeat(torch):
+    """pixelNeRF at the script's widths on its analytic scene's first
+    3 + PIX_REPEAT_VIEWS views, trained twice from one seed: every step's
+    loss and every parameter must be equal bit for bit."""
+    from jnerf_tpu_torch.projects.pixelnerf import main as pix
+
+    images, poses, focal = pix.make_synthetic()
+    keep = 3 + PIX_REPEAT_VIEWS
+    runs = []
+    for _ in range(2):
+        model = pix.build_model("cuda")
+        hist = pix.train(model, images[:keep], poses[:keep], focal, epochs=1)
+        runs.append((torch.tensor(hist["step_loss"]),
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}))
+        del model
+    (l1, s1), (l2, s2) = runs
+    differ = [k for k in s1 if not same_bits(torch, s1[k], s2[k])]
+    if not same_bits(torch, l1, l2):
+        differ.append("losses")
+    probe = deterministic_probe(torch, lambda: pix.train(
+        pix.build_model("cuda"), images[:keep], poses[:keep], focal,
+        epochs=1))
+    print(f"pixelNeRF repeat: {l1.numel()} steps twice from one seed, "
+          f"{len(s1)} tensors and the losses compared, {len(differ)} differ "
+          f"{differ[:8]}; deterministic-mode probe: {probe}", flush=True)
+    if differ or l1.numel() < 2:
+        raise SystemExit(f"pixelNeRF repeat: the runs differ ({differ})")
+    return dict(steps=l1.numel(), probe=probe)
+
+
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source and the g++ builds of the host-side
     cores (marching tetrahedra, the JPEG codec, the MPEG-4 encoder),
@@ -3144,8 +3616,8 @@ def build_kernels(torch, cuda_lib):
     from jnerf_tpu_torch import native
 
     t0 = time.perf_counter()
-    names = ("hash_encode", "fused_mlp", "envelope")
-    preludes = (cuda_lib.hash_prelude(), "", "")
+    names = ("hash_encode", "fused_mlp", "envelope", "voxel_grid")
+    preludes = (cuda_lib.hash_prelude(), "", "", "")
     hosts = ("marching_tets", "jpeg", "mpeg4")
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:
         host = [pool.submit(native.build, h) for h in hosts]
@@ -3154,6 +3626,7 @@ def build_kernels(torch, cuda_lib):
     cuda_lib.hash_encode_lib()
     cuda_lib.fused_mlp_lib()
     cuda_lib.envelope_lib()
+    cuda_lib.voxel_grid_lib()
     native.marching_lib()
     print(f"built {', '.join(lib.name for lib in libs)} and "
           f"{', '.join(os.path.basename(h) for h in host_libs)} in "
@@ -3293,9 +3766,9 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                          cli["linear_rows"]["cfg"])
     run_vanilla_nerf(torch, run_net, counters, mse2psnr, scene,
                      cli["linear_rows"]["bg_psnr"], tmp)
-    run_neus(torch, run_net, counters, tmp)
+    neus = run_neus(torch, run_net, counters, tmp)
     run_mip(torch, run_net, counters, scene, tmp)
-    run_svox2(torch, run_net, counters, scene, tmp)
+    svox = run_svox2(torch, run_net, counters, scene, tmp)
     run_pixelnerf(torch, counters, tmp)
     run_recursive_nerf(torch, counters, tmp)
     par = run_parallel(torch)
@@ -3307,6 +3780,8 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     env = run_envelope(torch)
     repeat = run_repeat(torch, Runner, ngp_synthetic_cfg, hash_nbr, hash_xor)
     windows = run_window_graphs(torch, Runner, ngp_synthetic_cfg, counters)
+    families = run_family_windows(torch, counters, tmp, neus["scene"], scene,
+                                  svox.pop("voxel"))
     window_launches = {k: {name: c[k] for name, c in
                            windows["launches"].items()}
                        for k in ("F", "B", "F xor", "B xor", "F-MLP",
@@ -3439,6 +3914,24 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             uniform={m: xs["uniform"]["bwd"][m]
                      for m in ("ms", "plain_ms", "bound_ms", "library_ms")}),
     ]
+    vox = families["voxel"]
+    kernels.append(kernel_row(
+        "voxel_grad (kernel V)", "jnerf_tpu_torch/csrc/voxel_grid.cu",
+        "jnerf_tpu/ops/voxel_grid.py:100", svox["launches"],
+        vox["dense 256^3"],
+        f"one phase-14 step's inputs on the trained 256^3 dense grid: "
+        f"{vox['dense 256^3']['n']} samples x 8 corners into "
+        f"{vox['dense 256^3']['n_rows']} rows x 28 channels, "
+        f"{vox['dense 256^3']['kept']} items kept",
+        also_replaces=["jnerf_tpu/ops/voxel_grid.py:255"],
+        max_abs_err=max(v["err"] for v in vox.values()),
+        library="index_add_ of the materialized [kept, 28] products: the "
+        "scatter alone",
+        window_path_launches=families["families"]["Plenoxels"]["launches"][
+            "V"],
+        **{"sparse 512^3": {m: vox["sparse 512^3"][m] for m in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
+            "n_rows", "kept")}}))
     kernels += envelope_rows(env)
     for k in kernels:
         k["max_abs_err"] = float(k["max_abs_err"])

@@ -70,15 +70,6 @@ class _RayPoolDataset:
     def _to_device(self, x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-    def _batch_to_device(self, arrays):
-        """Column views of one [batch, sum C] tensor holding ``arrays``,
-        copied in one transfer (from pinned memory, without waiting for
-        the device, on a card)."""
-        t = torch.from_numpy(np.concatenate(arrays, axis=1))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return torch.split(t, [a.shape[1] for a in arrays], dim=1)
-
     def _build_pool(self, per_image_rays, images):
         flat = [namedtuple_map(lambda r: r.reshape(-1, r.shape[-1]), rr)
                 for rr in per_image_rays]
@@ -100,16 +91,32 @@ class _RayPoolDataset:
     def __iter__(self):
         return self
 
-    def __next__(self):
-        """(Rays of [batch, C] tensors, rgba [batch, 4]) on the device."""
+    def next_host(self) -> np.ndarray:
+        """The next batch on the host, [batch, sum C]: the Rays fields'
+        columns, then the rgba's (`split_batch` takes it apart)."""
         if self.idx_now + self.batch_size >= self.rays.origins.shape[0]:
             self._reshuffle()
             self.idx_now = 0
         sl = slice(self.idx_now, self.idx_now + self.batch_size)
-        *fields, rgb = self._batch_to_device(
-            [r[sl] for r in self.rays] + [self.image_data[sl]])
         self.idx_now += self.batch_size
+        return np.concatenate([r[sl] for r in self.rays]
+                              + [self.image_data[sl]], axis=1)
+
+    def split_batch(self, t):
+        """A [batch, sum C] batch (`next_host`) -> (Rays of [batch, C]
+        column views, rgba [batch, 4])."""
+        widths = [r.shape[1] for r in self.rays] + [self.image_data.shape[1]]
+        *fields, rgb = torch.split(t, widths, dim=1)
         return Rays(*fields), rgb
+
+    def __next__(self):
+        """(Rays of [batch, C] tensors, rgba [batch, 4]) on the device,
+        copied in one transfer (from pinned memory, without waiting for the
+        device, on a card)."""
+        t = torch.from_numpy(self.next_host())
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return self.split_batch(t)
 
     def rays_for_image(self, idx):
         """Rays of [H, W, C] tensors of image ``idx`` on the device."""

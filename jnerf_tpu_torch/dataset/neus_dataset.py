@@ -143,13 +143,19 @@ class NeuSDataset:
 
     # --------------------------------------------------------------- rays
     def _pixel_rays(self, img_idx, px, py):
-        """Pixel coordinates [N] (f32) -> (rays_o [N, 3], rays_v [N, 3]) in
-        world space."""
+        """Pixel coordinates [N] (f32) of image ``img_idx`` (an int, or a
+        [1] int64 tensor on the device) -> (rays_o [N, 3], rays_v [N, 3])
+        in world space."""
+        if torch.is_tensor(img_idx):  # read on the device, not the host
+            k_inv = self.intrinsics_all_inv.index_select(0, img_idx)[0]
+            pose = self.pose_all.index_select(0, img_idx)[0]
+        else:
+            k_inv, pose = self.intrinsics_all_inv[img_idx], self.pose_all[img_idx]
         p = torch.stack([px, py, torch.ones_like(px)], dim=-1)
-        p = p @ self.intrinsics_all_inv[img_idx, :3, :3].T
+        p = p @ k_inv[:3, :3].T
         rays_v = p / torch.linalg.norm(p, dim=-1, keepdim=True)
-        rays_v = rays_v @ self.pose_all[img_idx, :3, :3].T
-        rays_o = self.pose_all[img_idx, :3, 3].expand(rays_v.shape)
+        rays_v = rays_v @ pose[:3, :3].T
+        rays_o = pose[:3, 3].expand(rays_v.shape)
         return rays_o, rays_v
 
     def _pixel_grid(self, resolution_level):
@@ -171,9 +177,14 @@ class NeuSDataset:
     def gen_random_rays_at(self, img_idx, batch_size, generator=None, px=None,
                            py=None):
         """Random pixels of one image -> [B, 10] (o, v, rgb, mask).  The
-        pixel coordinates ``px``, ``py`` [B] (int) are drawn from
-        ``generator`` unless given."""
+        image is an int or a 0-dim or [1] integer tensor on the device (a
+        CUDA graph reads it there); the pixel coordinates ``px``, ``py``
+        [B] (int) are drawn from ``generator`` unless given."""
         dev = self.images.device
+        if torch.is_tensor(img_idx):
+            img = img_idx.reshape(1).to(torch.int64)
+        else:
+            img = torch.full((1,), int(img_idx), dtype=torch.int64, device=dev)
         if px is None:
             px = torch.randint(0, self.W, (batch_size,), generator=generator,
                                device=dev)
@@ -181,9 +192,10 @@ class NeuSDataset:
             py = torch.randint(0, self.H, (batch_size,), generator=generator,
                                device=dev)
         px, py = px.to(dev, torch.int64), py.to(dev, torch.int64)
-        color = self.images[img_idx][py, px]
-        mask = self.masks[img_idx][py, px]
-        rays_o, rays_v = self._pixel_rays(img_idx, px.float(), py.float())
+        pixel = (img * self.H + py) * self.W + px
+        color = self.images.reshape(-1, self.images.shape[-1])[pixel]
+        mask = self.masks.reshape(-1, self.masks.shape[-1])[pixel]
+        rays_o, rays_v = self._pixel_rays(img, px.float(), py.float())
         return torch.cat([rays_o, rays_v, color, mask[:, :1]], dim=-1)
 
     def gen_rays_between(self, idx_0, idx_1, ratio, resolution_level=1):

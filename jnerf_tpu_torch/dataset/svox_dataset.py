@@ -81,17 +81,22 @@ class SvoxNeRFDataset:
         self._perm = self._rng.permutation(len(self._origins))
         self._cursor = 0
 
-    def next_batch(self, batch_size=None):
-        """(origins, unit dirs, rgb), each [batch, 3] on the device, copied
-        in one transfer (from pinned memory on a card)."""
+    def next_host(self, batch_size=None) -> np.ndarray:
+        """The next batch on the host: [batch, 9] f32, the origins', unit
+        dirs' and rgb's columns."""
         bs = batch_size or self.batch_size
         if self._cursor + bs > len(self._perm):
             self._perm = self._rng.permutation(len(self._origins))
             self._cursor = 0
         idx = self._perm[self._cursor:self._cursor + bs]
         self._cursor += bs
-        t = torch.from_numpy(np.concatenate(
-            [self._origins[idx], self._dirs[idx], self._rgbs[idx]], axis=1))
+        return np.concatenate(
+            [self._origins[idx], self._dirs[idx], self._rgbs[idx]], axis=1)
+
+    def next_batch(self, batch_size=None):
+        """(origins, unit dirs, rgb), each [batch, 3] on the device, copied
+        in one transfer (from pinned memory on a card)."""
+        t = torch.from_numpy(self.next_host(batch_size))
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t[:, 0:3], t[:, 3:6], t[:, 6:9]

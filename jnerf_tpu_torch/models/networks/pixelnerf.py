@@ -16,6 +16,11 @@ half-pixel centres and renormalises the edge weights onto the border
 pixel, which is what ``F.interpolate(mode="bilinear",
 align_corners=False)`` computes by clamping.
 
+The upsample's backward is the separable product ``A_h^T G A_w`` with
+the interpolation matrices (`resize_bilinear`), two f32 matmuls with TF32
+off that sum in one order on every run, where ``F.interpolate``'s own
+backward adds with float atomics in no fixed order.
+
 Everything is f32, as the JAX functions compute on the CPU.  cuDNN rounds
 f32 convolution operands to TF32 unless ``torch.backends.cudnn.allow_tf32``
 is off, so building an `ImageEncoder` turns it off for the process; the
@@ -25,8 +30,10 @@ False``.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,6 +66,51 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     top, bottom = _same_pad(x.shape[2], k, stride)
     left, right = _same_pad(x.shape[3], k, stride)
     return F.conv2d(F.pad(x, (left, right, top, bottom)), w, stride=stride)
+
+
+@functools.lru_cache(maxsize=32)
+def interp_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_out, n_in] f32: the weights of ``F.interpolate``'s bilinear
+    resize along one axis (half-pixel centres, align_corners=False, the
+    source clamped at 0 and the upper neighbour at the border), computed
+    in f32 as it computes them."""
+    f = np.float32
+    scale = f(n_in) / f(n_out)
+    src = np.maximum(scale * (np.arange(n_out, dtype=f) + f(0.5)) - f(0.5),
+                     f(0))
+    i0 = src.astype(np.int64)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    lam1 = (src - i0.astype(f)).astype(f)
+    a = np.zeros((n_out, n_in), f)
+    rows = np.arange(n_out)
+    np.add.at(a, (rows, i0), f(1) - lam1)
+    np.add.at(a, (rows, i1), lam1)
+    return torch.from_numpy(a).to(device)
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    """``F.interpolate(x, size, mode="bilinear", align_corners=False)``
+    forward; backward A_h^T g A_w, in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_hw = tuple(x.shape[2:])
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False, antialias=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h_in, w_in), (h_out, w_out) = ctx.in_hw, tuple(g.shape[2:])
+        a_h = interp_matrix(h_in, h_out, g.device)
+        a_w = interp_matrix(w_in, w_out, g.device)
+        return a_h.t() @ (g @ a_w), None
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """x [B, C, H, W] -> [B, C, *size], bilinear with half-pixel centres
+    (``jax.image.resize``'s "bilinear" upsampling), its gradient summed in
+    a fixed order."""
+    return _ResizeBilinear.apply(x, tuple(size))
 
 
 class ImageEncoder(nn.Module):
@@ -100,8 +152,7 @@ class ImageEncoder(nn.Module):
             y = torch.relu(_conv(x, getattr(self, f"conv{i}a"), stride))
             y = torch.relu(_conv(y, getattr(self, f"conv{i}b")))
             x = y
-            feats.append(F.interpolate(y, size=target_hw, mode="bilinear",
-                                       align_corners=False, antialias=False))
+            feats.append(resize_bilinear(y, target_hw))
         return torch.cat(feats, dim=1).permute(0, 2, 3, 1)
 
 

@@ -38,6 +38,7 @@ from jnerf_tpu_torch.ops.voxel_grid import (
     trilinear_sample_sparse,
     upsample_grid,
 )
+from jnerf_tpu_torch.utils.common import device_const
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.registry import NETWORKS
 
@@ -99,8 +100,8 @@ class SparseGrid(nn.Module):
 
     # ---------------------------------------------------------- transforms
     def _reso(self):
-        return torch.tensor(self.spec.reso, dtype=torch.float32,
-                            device=self.device)
+        return device_const(tuple(float(r) for r in self.spec.reso),
+                            self.device)
 
     def world2grid_points(self, pts):
         return (pts * self._scaling + self._offset) * (self._reso() - 1)

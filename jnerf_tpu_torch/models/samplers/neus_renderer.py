@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from jnerf_tpu_torch.models.networks.neus_network import softplus
+from jnerf_tpu_torch.ops.composite import _Cumprod
 from jnerf_tpu_torch.ops.linspace import linspace
 from jnerf_tpu_torch.utils.registry import SAMPLERS
 
@@ -59,10 +60,12 @@ def sample_pdf(bins, weights, n_samples, det=False, u=None, generator=None):
 
 
 def _cumprod_exclusive(alpha):
-    """T_i = prod_{j<i} (1 - alpha_j + 1e-6); returns weights alpha * T."""
-    t = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-6], -1),
-        -1)[..., :-1]
+    """T_i = prod_{j<i} (1 - alpha_j + 1e-6); returns weights alpha * T.
+    The factors are at least 1e-6 (alpha <= 1), so the product goes through
+    `_Cumprod`, whose backward reads nothing back from the device."""
+    t = _Cumprod.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-6], -1)
+    )[..., :-1]
     return alpha * t
 
 

@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (`jnerf_tpu_torch/csrc/*.cu`:
-``hash_encode``, ``fused_mlp`` and ``envelope``).
+``hash_encode``, ``fused_mlp``, ``envelope`` and ``voxel_grid``).
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers, so a build takes
@@ -179,6 +179,25 @@ def envelope_lib() -> ctypes.CDLL:
     lib.env_row_scatter_layout.restype = ctypes.c_longlong
     lib.env_packed_chunk.argtypes = []
     lib.env_packed_chunk.restype = ctypes.c_int
+    return lib
+
+
+# voxel_grad(idx, w, g[], out[], widths[], n_tables, work, n, K, n_rows,
+#            plan_only, stream)
+_VOXEL_GRAD_ARGS = [_P] * 5 + [_I, _P] + [_I] * 4 + [_P]
+# voxel_grad_layout(n, K, n_rows, out[3]) -> int32s
+_VOXEL_LAYOUT_ARGS = [_I] * 3 + [_P]
+
+
+@functools.lru_cache(maxsize=None)
+def voxel_grid_lib() -> ctypes.CDLL:
+    """Kernel V, the Plenoxels corner gather's table gradient
+    (`ops/voxel_grid.py`), built at first use."""
+    lib = ctypes.CDLL(str(build("voxel_grid")))
+    lib.voxel_grad.argtypes = _VOXEL_GRAD_ARGS
+    lib.voxel_grad.restype = ctypes.c_int
+    lib.voxel_grad_layout.argtypes = _VOXEL_LAYOUT_ARGS
+    lib.voxel_grad_layout.restype = ctypes.c_longlong
     return lib
 
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from jnerf_tpu_torch.utils.common import device_const
+
 
 def linspace(start, stop, num: int, device=None) -> torch.Tensor:
     """[num] f32 from ``start`` to ``stop`` inclusive, as jnp.linspace."""
@@ -19,6 +21,7 @@ def linspace(start, stop, num: int, device=None) -> torch.Tensor:
                           device=device)
     div = num - 1
     s = torch.arange(div, dtype=torch.float32, device=device) / div
-    start = torch.tensor(start, dtype=torch.float32, device=device)
-    stop = torch.tensor(stop, dtype=torch.float32, device=device)
+    dev = torch.device("cpu") if device is None else device
+    start = device_const(float(start), dev)
+    stop = device_const(float(stop), dev)
     return torch.cat([start * (1 - s) + stop * s, stop[None]])

@@ -8,10 +8,18 @@ with the same corner indices and weights, which gives the same values.
 
 The 8-corner trilinear gather is one autograd function, `corner_gather`:
 its forward sums ``w_c * table[idx_c]`` over the corners in the JAX code's
-order, and its backward scatters all 8 corners' ``w_c * g`` into each
-table's gradient with one ``index_add_`` (with plain indexing, autograd
+order, and its backward is `corner_grad` (with plain indexing, autograd
 would build one full-size gradient table per corner: eight 1.8 GB SH
-tables at 256^3), leaving out the corners of weight 0.
+tables at 256^3).  On the card that is kernel V (`csrc/voxel_grid.cu`),
+the counterpart of the XLA scatter that autodiff makes of the JAX code's
+``jnp.take``: one stable sort of the (sample, corner) items by row serves
+both tables, and each gradient row is summed from +0.0 in item order and
+written once, so every launch gives the same bits and a CUDA graph can
+capture it (no float atomics, no read of the device).  Items that add only
+zeros are left out: a weight of 0 (the sparse grid's empty corners) or a
+sample whose gradient is 0 in every table (those past a ray's exit).  On
+the CPU `corner_grad` runs its plain version, `corner_grad_plain`, which
+sums in the same order.
 
 The sparse grid keeps svox2's ``links`` indirection: a [X, Y, Z] int32
 volume (-1 = empty) indexes capacity-bounded ``density_data`` /
@@ -21,10 +29,15 @@ volume (-1 = empty) indexes capacity-bounded ``density_data`` /
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from jnerf_tpu_torch.ops.composite import transmittance
+from jnerf_tpu_torch.utils.common import device_const
 
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
@@ -97,20 +110,144 @@ class _CornerGather(torch.autograd.Function):
         idx, w = ctx.saved_tensors
         if ctx.needs_input_grad[1]:
             raise NotImplementedError("corner_gather: no gradient for w")
-        # Corners of weight 0 add nothing: the sparse grid's empty corners
-        # all point at row 0, and scattering them there serializes the
-        # atomics of most of a step's corners on one row.
-        live = torch.nonzero(w.reshape(-1)).squeeze(1)
-        rows, w_live = idx.reshape(-1)[live], w.reshape(-1)[live, None]
-        sample = live // idx.shape[1]
-        g_tables = []
-        for k, (shape, g) in enumerate(zip(ctx.shapes, grads)):
-            if not ctx.needs_input_grad[2 + k]:
-                g_tables.append(None)
-                continue
-            g_tables.append(g.new_zeros(shape).index_add_(
-                0, rows, w_live * g[sample]))
+        want = [k for k in range(len(grads)) if ctx.needs_input_grad[2 + k]]
+        g_tables = [None] * len(grads)
+        if not want:
+            return (None, None, *g_tables)
+        outs = corner_grad(idx, w, [grads[k].float().contiguous()
+                                    for k in want], ctx.shapes[want[0]][0])
+        for k, out in zip(want, outs):
+            g_tables[k] = out.reshape(ctx.shapes[k])
         return (None, None, *g_tables)
+
+
+def _live_items(idx, w, grads, n_rows):
+    """[N * K] bool: the (sample, corner) items that add more than zeros:
+    weight not 0, row in [0, n_rows), and some table's g of the sample not
+    0."""
+    live = torch.zeros(idx.shape[0], dtype=torch.bool, device=idx.device)
+    for g in grads:
+        live |= (g != 0).any(dim=1)
+    keep = (w != 0) & live[:, None] & (idx >= 0) & (idx < n_rows)
+    return keep.reshape(-1)
+
+
+def corner_grad_plain(idx, w, grads, n_rows: int):
+    """Plain version of kernel V: for each g [N, C_t] f32, the gradient
+    [n_rows, C_t] f32 of ``corner_gather`` with respect to table t, each
+    row the sum from +0.0 of w[n, c] * g[n] over its items (n, c) in item
+    order (n * K + c; ``index_add_`` on the CPU adds in index order),
+    leaving out the items that add only zeros (`_live_items`)."""
+    K = idx.shape[1]
+    items = torch.nonzero(_live_items(idx, w, grads, n_rows)).squeeze(1)
+    rows, w_kept = idx.reshape(-1)[items], w.reshape(-1)[items, None]
+    sample = items // K
+    return [g.new_zeros((n_rows, g.shape[1])).index_add_(
+        0, rows, w_kept * g[sample]) for g in grads]
+
+
+def corner_grad_plan_plain(idx, w, grads, n_rows: int):
+    """Plain version of kernel V's sort: (start [n_rows + 1] int32, order
+    [kept] int32), the kept items sorted stably by row and each row's first
+    position; start[n_rows] is the number kept."""
+    keep = _live_items(idx, w, grads, n_rows)
+    rows = idx.reshape(-1)
+    order = torch.sort(torch.where(keep, rows, n_rows), stable=True).indices
+    order = order[:int(keep.sum())]
+    start = torch.zeros(n_rows + 1, dtype=torch.int64, device=idx.device)
+    start[1:] = torch.cumsum(torch.bincount(rows[keep], minlength=n_rows), 0)
+    return start.to(torch.int32), order.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def grad_layout(n: int, K: int, n_rows: int):
+    """Kernel V's work space: (int32s, where the row starts lie in it,
+    where the sorted items lie in it)."""
+    from .cuda_lib import voxel_grid_lib
+
+    out = (ctypes.c_longlong * 3)()
+    if voxel_grid_lib().voxel_grad_layout(n, K, n_rows, out) < 0:
+        raise ValueError(f"kernel V does not take {n} samples of {K} "
+                         f"corners into {n_rows} rows")
+    return tuple(out)
+
+
+def _launch_grad(idx, w, grads, n_rows, outs, work, plan_only):
+    from .cuda_lib import Launch, voxel_grid_lib
+
+    global _VOXEL_GRAD
+    if _VOXEL_GRAD is None:
+        _VOXEL_GRAD = Launch(voxel_grid_lib, "voxel_grad")
+    T = len(grads)
+    g_ptrs = (ctypes.c_void_p * T)(*[g.data_ptr() for g in grads])
+    o_ptrs = (ctypes.c_void_p * T)(*[o.data_ptr() for o in outs])
+    widths = (ctypes.c_int * T)(*[g.shape[1] for g in grads])
+    n, K = idx.shape
+    _VOXEL_GRAD(idx.get_device(), idx.data_ptr(), w.data_ptr(), g_ptrs,
+                o_ptrs, widths, T, work.data_ptr(), n, K, n_rows,
+                int(plan_only))
+
+
+_VOXEL_GRAD = None
+
+
+def _require_cuda_grad_inputs(idx, w, grads):
+    n = idx.shape[0]
+    if idx.dtype != torch.int64 or idx.dim() != 2 or not 1 <= idx.shape[1] <= 8:
+        raise ValueError(f"idx must be [N, K<=8] int64, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    if w.dtype != torch.float32 or w.shape != idx.shape:
+        raise ValueError(f"w must be {tuple(idx.shape)} float32, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    if not 1 <= len(grads) <= 4:
+        raise ValueError(f"kernel V takes 1 to 4 tables, got {len(grads)}")
+    for g in grads:
+        if g.dtype != torch.float32 or g.dim() != 2 or g.shape[0] != n:
+            raise ValueError(f"each g must be [{n}, C] float32, got "
+                             f"{tuple(g.shape)} {g.dtype}")
+    for t in (idx, w, *grads):
+        if t.device != idx.device:
+            raise ValueError("kernel V takes tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("kernel V takes contiguous tensors")
+
+
+def corner_grad(idx, w, grads, n_rows: int):
+    """Kernel V: the gradients of `corner_gather` with respect to its
+    tables, one [n_rows, C_t] f32 a g [N, C_t], each row summed in
+    `corner_grad_plain`'s order, so equal to it bit for bit on every
+    launch.  On CPU tensors, that plain version."""
+    if idx.device.type == "cpu":
+        return corner_grad_plain(idx, w, grads, n_rows)
+    _require_cuda_grad_inputs(idx, w, grads)
+    outs = [torch.empty((n_rows, g.shape[1]), dtype=torch.float32,
+                        device=idx.device) for g in grads]
+    if idx.numel() == 0:
+        return [o.zero_() for o in outs]
+    work = torch.empty(grad_layout(idx.shape[0], idx.shape[1], n_rows)[0],
+                       dtype=torch.int32, device=idx.device)
+    _launch_grad(idx, w, grads, n_rows, outs, work, False)
+    corner_grad.launches += 1
+    return outs
+
+
+corner_grad.launches = 0
+
+
+def corner_grad_plan(idx, w, grads, n_rows: int):
+    """Kernel V's sort alone, as `corner_grad_plan_plain` returns it (on
+    CPU tensors, that plain version).  Not counted."""
+    if idx.device.type == "cpu":
+        return corner_grad_plan_plain(idx, w, grads, n_rows)
+    _require_cuda_grad_inputs(idx, w, grads)
+    total, at_start, at_order = grad_layout(idx.shape[0], idx.shape[1],
+                                            n_rows)
+    work = torch.empty(total, dtype=torch.int32, device=idx.device)
+    outs = [torch.empty((0,), dtype=torch.float32, device=idx.device)
+            for _ in grads]
+    _launch_grad(idx, w, grads, n_rows, outs, work, True)
+    start = work[at_start:at_start + n_rows + 1]
+    return start, work[at_order:at_order + int(start[-1])]
 
 
 def corner_gather(idx, w, *tables):
@@ -124,8 +261,7 @@ def corners(spec: VoxelGridSpec, pos):
     positions [N, 3], corners clamped to the grid (svox2 clamps at
     borders)."""
     X, Y, Z = spec.reso
-    dev = pos.device
-    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=dev)
+    hi = device_const((X - 1, Y - 1, Z - 1), pos.device)
     p = torch.clamp(pos, min=torch.zeros_like(hi), max=hi)
     g0f = torch.floor(torch.clamp(p, min=torch.zeros_like(hi), max=hi - 1))
     fr = p - g0f
@@ -167,7 +303,7 @@ def _composite(spec, sample_fn, rays_o, rays_d, n_samples, step_size,
     sampled by ``sample_fn(pos [N, 3]) -> (sigma, sh)``; returns rgb [R, 3]."""
     X, Y, Z = spec.reso
     dev = rays_o.device
-    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=dev)
+    hi = device_const((X - 1, Y - 1, Z - 1), dev)
     inv = 1.0 / torch.where(torch.abs(rays_d) > 1e-9, rays_d,
                             torch.full_like(rays_d, 1e-9))
     t0 = (0.0 - rays_o) * inv
@@ -194,7 +330,7 @@ def _composite(spec, sample_fn, rays_o, rays_d, n_samples, step_size,
     delta = (step_size if delta_scale is None
              else step_size * delta_scale[:, None])
     alpha = 1.0 - torch.exp(-sigma * delta)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = transmittance(alpha)
     t_excl = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], -1)
     weights = alpha * t_excl
     out = torch.sum(weights[..., None] * rgb, dim=1)

@@ -56,10 +56,11 @@ class PlenOptim:
         return {"sh_rms": torch.zeros_like(params[sk])}
 
     @torch.no_grad()
-    def step(self, params: dict, state: dict, lr_sigma: float,
-             lr_sh: float) -> dict:
-        """Update the tables from their ``.grad`` in place; returns the
-        state."""
+    def step(self, params: dict, state: dict, lr_sigma, lr_sh) -> dict:
+        """Update the tables from their ``.grad`` in place at the learning
+        rates ``lr_sigma`` and ``lr_sh`` (f32 values: Python floats, or
+        0-dim tensors on the tables' device, which a CUDA graph reads
+        there); returns the state."""
         dk, sk = self._keys(params)
         density, sh = params[dk], params[sk]
         density.sub_(density.grad * lr_sigma)

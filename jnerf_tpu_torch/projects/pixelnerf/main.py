@@ -156,7 +156,9 @@ def train(model, images, poses, focal, n_ref=3, epochs=10, batch=2048,
     """Train ``model`` on the views after the first ``n_ref``, which are the
     references.  Prints one line an epoch and returns ``{"epoch_loss",
     "step_loss", "seconds"}`` (the loop's host time; each step reads its
-    loss back, which waits for the device)."""
+    loss back, which waits for the device).  The steps run with cuDNN's
+    deterministic convolution algorithms (and TF32 off), so that a seed
+    repeats."""
     device = next(model.parameters()).device
     rays = [torch.as_tensor(a, device=device)
             for a in camera_rays(images[n_ref:], poses[n_ref:], focal)]
@@ -170,21 +172,24 @@ def train(model, images, poses, focal, n_ref=3, epochs=10, batch=2048,
     steps_per_epoch = max(1, n_rays // batch)
     epoch_loss, step_loss = [], []
     t0 = time.perf_counter()
-    for ep in range(epochs):
-        losses = []
-        for _ in range(steps_per_epoch):
-            sel = torch.as_tensor(rng.integers(0, n_rays, batch),
-                                  device=device)
-            ro, rd, target = (r[sel] for r in rays)
-            opt.zero_grad(set_to_none=True)
-            loss = loss_fn(model, ref_images, ref_poses, focal, ro, rd,
-                           target, next(draws).to(device), n_samples)
-            loss.backward()
-            opt.step()
-            losses.append(float(loss.detach()))
-        step_loss += losses
-        epoch_loss.append(float(np.mean(losses)))
-        print(f"epoch {ep}: loss={np.mean(losses):.5f}", flush=True)
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for ep in range(epochs):
+            losses = []
+            for _ in range(steps_per_epoch):
+                sel = torch.as_tensor(rng.integers(0, n_rays, batch),
+                                      device=device)
+                ro, rd, target = (r[sel] for r in rays)
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model, ref_images, ref_poses, focal, ro, rd,
+                               target, next(draws).to(device), n_samples)
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+            step_loss += losses
+            epoch_loss.append(float(np.mean(losses)))
+            print(f"epoch {ep}: loss={np.mean(losses):.5f}", flush=True)
     return {"epoch_loss": epoch_loss, "step_loss": step_loss,
             "seconds": time.perf_counter() - t0}
 

@@ -1,14 +1,18 @@
 """Mip-NeRF runner: the two-level loop with the coarse loss down-weighted.
 
-Counterpart of `jnerf_tpu/runner/mip_runner.py`, one eager step at a time
-(the JAX package chains 16 steps in a ``lax.scan`` window; the schedule of
-validations is the same: every ``_VAL_FREQ`` steps, a random val image
-whose index comes from the runner's generator).  A step is both levels'
-sampling, MLP and compositing, the per-level masked MSE with
-``coarse_loss_mult`` on every level but the last, and Adam on the
-`LinearLog` schedule.  Random draws come from the runner's generator unless
-passed in (``draws``: one dict a level with ``u``, the level's uniform
-draw, and ``noise``, its density noise).  Renders go in chunks of
+Counterpart of `jnerf_tpu/runner/mip_runner.py`.  As the JAX runner
+chains up to 16 steps in a ``lax.scan`` window, cut at every
+``_VAL_FREQ`` steps (a random val image whose index comes from the
+runner's generator) and at the end, ``train`` runs each such window as one
+CUDA graph replay on a card (`runner/windows.py`; a loop of
+``train_step`` on the CPU or with ``graph=False``).  The window's batches
+are staged into one static [n, batch, C] input with one copy, and each
+step reads its row of a table of Adam's scalars (``scalar_rows``).  A
+step is both levels' sampling, MLP and compositing, the per-level masked
+MSE with ``coarse_loss_mult`` on every level but the last, and Adam on
+the `LinearLog` schedule.  Random draws come from the runner's generator,
+registered with each graph, unless passed in (``draws``: one dict a level
+with ``u``, the level's uniform draw, and ``noise``, its density noise).  Renders go in chunks of
 ``chunk`` (3072) rays, the last padded with rays of ones; images are
 written through the port's PNG codec.
 
@@ -33,6 +37,11 @@ from jnerf_tpu_torch.dataset.dataset_util import write_image
 from jnerf_tpu_torch.dataset.mip_dataset import namedtuple_map
 from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
 from jnerf_tpu_torch.runner.runner import _adam_state
+from jnerf_tpu_torch.runner.windows import (
+    GraphWindows,
+    graph_windows,
+    window_length,
+)
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.convert import (
     jax_params_to_state_dict,
@@ -90,6 +99,8 @@ class MipRunner:
         self.ckpt_path = cfg.ckpt_path or os.path.join(self.save_path,
                                                        "params.pkl")
         self.start = 0  # where train() begins: the steps taken so far
+        self.windows = GraphWindows(device, self.generator)
+        self.window_losses = None  # the [n] losses of the last window
         if cfg.load_ckpt:
             self.load_ckpt(self.ckpt_path)
         cfg.m_training_step = 0
@@ -121,26 +132,52 @@ class MipRunner:
         loss = self.coarse_loss_mult * sum(losses[:-1]) + losses[-1]
         return loss, losses[-1]
 
-    def train_step(self, rays, rgb_target, draws=None):
-        """One step: the loss, its backward and Adam; returns the detached
-        (loss, fine MSE) without waiting for the device."""
+    def train_step(self, rays, rgb_target, draws=None, row=None):
+        """One step: the loss, its backward and Adam (``row``: the step's
+        row of ``scalar_rows`` on the device, made when None); returns the
+        detached (loss, fine MSE) without waiting for the device."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, fine = self.forward_loss(rays, rgb_target, draws)
         loss.backward()
-        self.optimizer.step()
+        self.optimizer.step(row=row)
         return loss.detach(), fine.detach()
 
-    def train(self):
-        """Train from ``start`` to ``tot_train_steps``, with a validation
-        image every ``_VAL_FREQ`` steps, then save ``ckpt_path``; returns
-        the last step's loss."""
+    def _window_body(self, table, batches):
+        ds = self.dataset["train"]
+        return torch.stack([
+            self.train_step(*ds.split_batch(batch), row=row)[0]
+            for row, batch in zip(table, batches)])
+
+    def train_window(self, n: int, graph=None):
+        """The next ``n`` batches' steps (not advancing ``start``) as one
+        graph replay where `graph_windows` allows (or ``graph`` says), else
+        as a loop of ``train_step``; sets and returns ``window_losses``."""
+        if graph is None:
+            graph = graph_windows(self.device)
+        ds = self.dataset["train"]
+        batches = np.stack([ds.next_host() for _ in range(n)])
+        rows = self.optimizer.scalar_rows(n)
+        if graph:
+            self.window_losses = self.windows.run(
+                n, rows, self._window_body, inputs=batches,
+                counters=[(self.optimizer, "count")], params=self.params)
+        else:
+            self.window_losses = self.windows.eager(rows, self._window_body,
+                                                    batches)
+        return self.window_losses
+
+    def train(self, graph=None):
+        """Train from ``start`` to ``tot_train_steps`` in windows, with a
+        validation image every ``_VAL_FREQ`` steps, then save
+        ``ckpt_path``; returns the last step's loss.  ``graph=False`` runs
+        every window as a loop of ``train_step``."""
         i = self.start
         loss = None
         while i < self.tot_train_steps:
+            n = window_length(i, self.tot_train_steps, (self._VAL_FREQ,))
             self.cfg.m_training_step = i
-            rays, rgb = next(self.dataset["train"])
-            loss, _ = self.train_step(rays, rgb)
-            i += 1
+            loss = self.train_window(n, graph)[-1]
+            i += n
             self.start = i
             if i < self.tot_train_steps and i % self._VAL_FREQ == 0:
                 psnr = mse2psnr(self.val_img(i))

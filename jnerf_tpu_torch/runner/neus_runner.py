@@ -2,12 +2,18 @@
 losses, a cosine learning rate with warm-up, image and mesh validation,
 checkpoints and resuming.
 
-Counterpart of `jnerf_tpu/runner/neus_runner.py`, one eager step at a time
-(the JAX package chains steps in a ``lax.scan`` window; the schedule of
-reports, checkpoints and validations is the same).  Adam is
-``optax.scale_by_adam`` scaled by ``-lr``, with the step's learning rate
-read from the schedule.  Random draws (the image order, the pixels of each
-batch and the renderer's jitter) come from the runner's generators.
+Counterpart of `jnerf_tpu/runner/neus_runner.py`.  As the JAX runner
+chains up to 16 steps in a ``lax.scan`` window, cut at every report,
+checkpoint, validation and mesh boundary, at the end of a pass over the
+images and at ``end_iter``, ``train`` runs each such window as one CUDA
+graph replay on a card (`runner/windows.py`; a loop of ``train_step``
+on the CPU, or through ``train_eager``).  Each step reads its row of a
+table computed on the host as the JAX loop computes its per-step inputs:
+Adam's learning rate (the schedule at the step) and bias corrections, the
+cos anneal ratio (f32) and the image index.  Adam is
+``optax.scale_by_adam`` scaled by ``-lr``.  Random draws (the image order,
+the pixels of each batch and the renderer's jitter) come from the runner's
+generators; the device generator is registered with each graph.
 Checkpoints keep the JAX runner's pickle, ``{"neus": params tree, "iter_step"}``
 with numpy leaves, so each package reads the other's.  Images are written
 through the port's PNG codec, in the channel order ``cv.imwrite`` gives
@@ -24,6 +30,12 @@ import torch
 
 from jnerf_tpu_torch.dataset.dataset_util import encode_png
 from jnerf_tpu_torch.optims import AdamOptimizer
+from jnerf_tpu_torch.runner.windows import (
+    GraphWindows,
+    graph_windows,
+    host_to_device,
+    window_length,
+)
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.convert import (
     jax_params_to_state_dict,
@@ -111,10 +123,16 @@ class NeuSRunner:
 
         adam = build_from_cfg(cfg.optim, OPTIMS)
         self.params = list(self.neus_network.parameters())
-        # The learning rate is read from the schedule at each step.
-        self.optimizer = AdamOptimizer(self.params, adam.lr, adam.betas,
-                                       adam.eps,
-                                       lr_schedule=lambda _: self.current_lr())
+        # The learning rate is the schedule's at the step: Adam's count
+        # ``c`` is step iter_step + c - count.
+        self.optimizer = AdamOptimizer(
+            self.params, adam.lr, adam.betas, adam.eps,
+            lr_schedule=lambda c: self.current_lr(
+                self.iter_step + c - self.optimizer.count))
+        self.windows = GraphWindows(device, self.generator)
+        # The [n, 4] (total, colour loss, eikonal term, mean s) of the last
+        # window's steps.
+        self.window_losses = None
 
         if is_continue:
             ckpt_dir = os.path.join(self.base_exp_dir, "checkpoints")
@@ -127,27 +145,50 @@ class NeuSRunner:
                 self.load_checkpoint(latest)
 
     # ---------------------------------------------------------------- sched
-    def get_cos_anneal_ratio(self):
+    def get_cos_anneal_ratio(self, step=None):
+        step = self.iter_step if step is None else step
         if self.anneal_end == 0.0:
             return 1.0
-        return min(1.0, self.iter_step / self.anneal_end)
+        return min(1.0, step / self.anneal_end)
 
-    def current_lr(self):
-        if self.iter_step < self.warm_up_end:
-            factor = self.iter_step / self.warm_up_end
+    def current_lr(self, step=None):
+        step = self.iter_step if step is None else step
+        if step < self.warm_up_end:
+            factor = step / self.warm_up_end
         else:
             a = self.learning_rate_alpha
-            progress = ((self.iter_step - self.warm_up_end)
+            progress = ((step - self.warm_up_end)
                         / (self.end_iter - self.warm_up_end))
             factor = (np.cos(np.pi * progress) + 1.0) * 0.5 * (1 - a) + a
         return self.learning_rate * factor
 
+    def step_rows(self, n: int) -> np.ndarray:
+        """[n, width] f32: the scalars of steps iter_step .. + n - 1, as the
+        JAX loop computes its per-step inputs: Adam's columns (the
+        learning rate of the step's schedule, the bias corrections), then
+        the cos anneal ratio and the image index (of the current order)."""
+        steps = self.iter_step + np.arange(n)
+        perm = self._image_perm
+        extra = np.stack([
+            np.array([self.get_cos_anneal_ratio(int(t)) for t in steps],
+                     np.float32),
+            perm[steps % len(perm)].astype(np.float32)], axis=1)
+        return np.concatenate([self.optimizer.scalar_rows(n), extra], axis=1)
+
+    def window_length(self) -> int:
+        """Steps in the window from iter_step: the JAX loop's rule."""
+        return window_length(
+            self.iter_step, self.end_iter,
+            (self.report_freq, self.save_freq, self.val_freq,
+             self.val_mesh_freq, len(self._image_perm)))
+
     # ---------------------------------------------------------------- train
-    def forward_loss(self, data, t_rand=None, t_r=None):
+    def forward_loss(self, data, t_rand=None, t_r=None, anneal=None):
         """The step's loss on a ray batch ``data`` [B, 10] (o, v, rgb,
-        mask), at the current cos anneal: (total, (colour loss, eikonal
-        term, mean s)), differentiable in the network's parameters.
-        ``t_rand``, ``t_r``: the renderer's draws, if given."""
+        mask), at the cos anneal ``anneal`` (an f32 0-dim tensor or float;
+        the current step's when None): (total, (colour loss, eikonal term,
+        mean s)), differentiable in the network's parameters.  ``t_rand``,
+        ``t_r``: the renderer's draws, if given."""
         rays_o, rays_d = data[:, :3], data[:, 3:6]
         true_rgb, mask = data[:, 6:9], data[:, 9:10]
         near, far = self.dataset.near_far_from_sphere(rays_o, rays_d)
@@ -158,8 +199,9 @@ class NeuSRunner:
         else:
             mask = torch.ones_like(mask)
         mask_sum = torch.sum(mask) + 1e-5
-        # The JAX step takes the anneal ratio as an f32 scalar.
-        anneal = float(np.float32(self.get_cos_anneal_ratio()))
+        if anneal is None:
+            # The JAX step takes the anneal ratio as an f32 scalar.
+            anneal = float(np.float32(self.get_cos_anneal_ratio()))
         out = self.renderer.render(rays_o, rays_d, near, far,
                                    background_rgb=bg, cos_anneal_ratio=anneal,
                                    generator=self.generator, t_rand=t_rand,
@@ -173,29 +215,54 @@ class NeuSRunner:
         total = color_loss + eik * self.igr_weight + mask_loss * self.mask_weight
         return total, (color_loss, eik, out["s_val"].mean())
 
-    def train_step(self):
-        """One Adam step on a random batch of the current image of the
-        run's order; returns the detached (total, colour loss, eikonal
-        term, mean s) on the device."""
+    def train_step(self, row=None):
+        """One Adam step on a random batch of the step's image; ``row`` is
+        its row of ``step_rows`` on the device (made here when None).
+        Returns the detached (total, colour loss, eikonal term, mean s) on
+        the device."""
+        if row is None:
+            row = host_to_device(self.step_rows(1), self.device)[0]
+        k = self.optimizer.row_width
         data = self.dataset.gen_random_rays_at(
-            self._image_perm[self.iter_step % len(self._image_perm)],
-            self.batch_size, generator=self.generator)
-        total, aux = self.forward_loss(data)
+            row[k + 1].to(torch.int64), self.batch_size,
+            generator=self.generator)
+        total, aux = self.forward_loss(data, anneal=row[k])
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        self.optimizer.step()
+        self.optimizer.step(row=row[:k])
         return torch.stack([total.detach(), *(a.detach() for a in aux)])
 
-    def train(self):
-        """Train to ``end_iter``: a report line every ``report_freq`` steps,
-        a checkpoint every ``save_freq``, a validation image every
-        ``val_freq`` and a mesh every ``val_mesh_freq``; a new image order
-        after each pass over the images."""
+    def _window_body(self, table, _inputs=None):
+        return torch.stack([self.train_step(row=row) for row in table])
+
+    def train_window(self, n: int, graph=None):
+        """Steps iter_step .. + n - 1 (not advancing iter_step) as one
+        graph replay where `graph_windows` allows (or ``graph`` says), else
+        as a loop of ``train_step``; sets and returns ``window_losses``."""
+        if graph is None:
+            graph = graph_windows(self.device)
+        rows = self.step_rows(n)
+        if graph:
+            self.window_losses = self.windows.run(
+                n, rows, self._window_body,
+                counters=[(self.optimizer, "count")], params=self.params)
+        else:
+            self.window_losses = self.windows.eager(rows, self._window_body)
+        return self.window_losses
+
+    def train(self, graph=None):
+        """Train to ``end_iter`` in windows (`window_length`): a report
+        line every ``report_freq`` steps, a checkpoint every
+        ``save_freq``, a validation image every ``val_freq`` and a mesh
+        every ``val_mesh_freq``; a new image order after each pass over the
+        images.  ``graph=False`` runs every window as a loop of
+        ``train_step``."""
         while self.iter_step < self.end_iter:
-            losses = self.train_step()
-            self.iter_step += 1
+            n = self.window_length()
+            losses = self.train_window(n, graph)
+            self.iter_step += n
             if self.iter_step % self.report_freq == 0:
-                print(f"iter:{self.iter_step:8d} loss = {float(losses[0]):.5f} "
+                print(f"iter:{self.iter_step:8d} loss = {float(losses[-1, 0]):.5f} "
                       f"lr={self.current_lr():.6f}", flush=True)
             if self.iter_step % self.save_freq == 0:
                 self.save_checkpoint()

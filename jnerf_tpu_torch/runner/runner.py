@@ -12,25 +12,19 @@ The JAX package chains a refresh window of steps in one ``lax.scan``,
 compiled once per (n_rays, samples/ray, steps) and dispatched once
 (``_train_window``).  Here, on a CUDA runner without a mesh,
 ``train_range`` runs each window as the replay of one CUDA graph that
-holds the window's steps unrolled (``_train_window``, one graph per key in
-``_train_window_cache``, all in one memory pool).  The first window of a
-key runs eagerly, on the capture stream, as the warm-up that capture
-needs; the next one is captured and replayed, and later ones replay.  A
-replay reads what changes from step to step from device memory: the
-step's Adam and EMA scalars from a table copied in before it (one row a
-step; the eager step reads the same rows), the random draws from the
-runner's generator, registered with the graph so that each replay
-advances it as the eager steps would, and the grid state from the buffers
-the graph was captured on (a refresh's new tensors are copied into them).
-A graph window and an eager window from one seed end in the same bits.
-The wrappers' launch counters are bumped on the host, so each graph keeps
-the counts made while it was captured and adds them at every replay.  A
-capture that fails raises.  These stay eager: a CPU runner (no graphs), a
-runner with a mesh (gloo's collectives cannot be captured), the density
-grid refresh (the JAX runner dispatches it on its own too), rendering, and
-``train_step``, the counterpart of the JAX runner's ``_train_step``;
-``train_range_eager`` runs the same schedule with every window a loop of
-``train_step``.
+holds the window's steps unrolled (`runner/windows.py`, shared with the
+NeuS, Mip-NeRF and Plenoxels runners; one graph per (n_rays, samples/ray,
+steps) in ``self.windows``).  A replay reads the step's Adam and EMA
+scalars from a row of a table copied in before it (the eager step reads
+the same rows), the random draws from the runner's generator, registered
+with the graph, and the grid state from the buffers the graph was captured
+on (a refresh's new tensors are copied into them).  A graph window and an
+eager window from one seed end in the same bits.  These stay eager: a CPU
+runner (no graphs), a runner with a mesh (gloo's collectives cannot be
+captured), the density grid refresh (the JAX runner dispatches it on its
+own too), rendering, and ``train_step``, the counterpart of the JAX
+runner's ``_train_step``; ``train_range_eager`` runs the same schedule
+with every window a loop of ``train_step``.
 
 The rendering half is ported too: ``render_img``, ``render_img_with_pose``,
 ``render_test``, ``val_img`` and ``test`` march full images in chunks of
@@ -72,7 +66,6 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -81,7 +74,6 @@ from jnerf_tpu_torch.dataset import camera_path
 from jnerf_tpu_torch.dataset.dataset import rays_from_pixels
 from jnerf_tpu_torch.dataset.dataset_util import write_image
 from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
-from jnerf_tpu_torch.ops import fused_mlp, hash_nbr, hash_xor
 from jnerf_tpu_torch.ops.compact import compact_indices, render_rays_compact
 from jnerf_tpu_torch.ops.composite import density_l1_reg, render_rays
 from jnerf_tpu_torch.parallel import (
@@ -90,6 +82,11 @@ from jnerf_tpu_torch.parallel import (
     gather_rows,
     replicated,
     shard_rays,
+)
+from jnerf_tpu_torch.runner.windows import (
+    GraphWindows,
+    graph_windows,
+    host_to_device,
 )
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.convert import (
@@ -109,31 +106,6 @@ from jnerf_tpu_torch.utils.registry import (
 # Relative strength of the reference's early-training negative-density push
 # (`calc_rgb.h:112,141`) in mean-loss units, as in the JAX package.
 DENSITY_L1_COEF = 1e-4 / 384.0
-
-# The kernel wrappers that count their launches (``fn.launches``), by module.
-COUNTED_WRAPPERS = (
-    (hash_nbr, ("encode_fwd", "grad_table")),
-    (hash_xor, ("encode_xor_fwd", "grad_table_xor")),
-    (fused_mlp, ("fused_mlp_fwd", "fused_mlp_bwd", "fused_density_mlp")),
-)
-
-
-def graph_windows(device: torch.device, mesh) -> bool:
-    """Whether ``train_range`` replays its windows as CUDA graphs: on a
-    CUDA device without a mesh."""
-    return torch.device(device).type == "cuda" and mesh is None
-
-
-class _WindowGraph(NamedTuple):
-    """A captured window: the graph, the static table of its steps'
-    scalars and the [n] main losses it writes, and each counted wrapper's
-    launches in one replay."""
-
-    graph: object
-    table: torch.Tensor
-    losses: torch.Tensor
-    launches: list
-
 
 class Runner:
     # A validation render every val_freq steps of train(); rays per render
@@ -190,14 +162,11 @@ class Runner:
         self.tot_train_steps = cfg.tot_train_steps
         self.sampler.init_state()
         self.start = 0
-        # (n_rays, samples/ray, steps) -> _WindowGraph; the keys
-        # whose eager warm-up window has run; the grid-state buffers the
-        # graphs read; their memory pool and capture stream (made at first
-        # use); the [n] main losses of the last window.
-        self._train_window_cache = {}
-        self._warm_windows = set()
+        # The graph windows, keyed by (n_rays, samples/ray, steps); the
+        # grid-state buffers the graphs read; the [n] main losses of the
+        # last window.
+        self.windows = GraphWindows(device, self.generator)
         self._window_state = {}
-        self._graph_pool = self._graph_stream = None
         self.window_losses = None
         if cfg.load_ckpt:
             self.load_ckpt(self.ckpt_path)
@@ -290,10 +259,10 @@ class Runner:
     def train_step(self, idx=None, bg=None, u=None, row=None):
         """One optimizer step at the sampler's current shapes; returns the
         main loss (a 0-dim device tensor).  ``row`` holds the step's Adam
-        and EMA scalars on the device (a row of ``_step_table``; made here
+        and EMA scalars on the device (a row of ``_step_rows``; made here
         when None)."""
         if row is None:
-            row = self._step_table(1)[0]
+            row = host_to_device(self._step_rows(1), self.device)[0]
         total, main, samples = self.forward_loss(
             self.sampler.n_rays_per_batch, self.sampler.n_samples_per_ray,
             idx=idx, bg=bg, u=u)
@@ -314,16 +283,6 @@ class Runner:
         if self.ema is not None:
             rows.append(self.ema.scalar_rows(self.ema_state["steps"], n))
         return np.concatenate(rows, axis=1)
-
-    def _step_table(self, n: int, out=None) -> torch.Tensor:
-        """``_step_rows(n)`` on the runner's device, in one host-to-device
-        copy that does not wait (into ``out`` if given)."""
-        host = torch.from_numpy(self._step_rows(n))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        if out is None:
-            return host.to(self.device, non_blocking=True)
-        return out.copy_(host, non_blocking=True)
 
     # ------------------------------------------------------- window training
     def train_range(self, start: int, end: int, tick=None):
@@ -387,77 +346,29 @@ class Runner:
                     self.sampler.n_rays_per_batch)
         return None if loss is None else loss.clone()
 
+    def _window_body(self, table, _inputs=None):
+        """The window's steps, each reading its row of ``table``; returns
+        their [n] main losses."""
+        return torch.stack([self.train_step(row=row) for row in table])
+
     def _eager_window(self, n: int):
         """``n`` steps as a loop of ``train_step`` over one table of their
         scalars."""
-        table = self._step_table(n)
-        self.window_losses = torch.stack(
-            [self.train_step(row=table[j]) for j in range(n)])
+        self.window_losses = self.windows.eager(self._step_rows(n),
+                                                self._window_body)
 
     def _train_window(self, n: int):
         """``n`` steps as one CUDA graph replay, the counterpart of the JAX
-        runner's ``_train_window``: the key's first window runs eagerly on
-        the capture stream (the warm-up), the second is captured, and every
-        window from the second on replays its graph."""
+        runner's ``_train_window`` (the key's first window is its eager
+        warm-up)."""
         key = (self.sampler.n_rays_per_batch, self.sampler.n_samples_per_ray,
                n)
-        win = self._train_window_cache.get(key)
-        if win is None and key not in self._warm_windows:
-            stream = self._capture_stream()
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(stream):
-                self._eager_window(n)
-            torch.cuda.current_stream(self.device).wait_stream(stream)
-            self._warm_windows.add(key)
-            return
-        self._pin_window_state()
-        if win is None:
-            win = self._train_window_cache[key] = self._capture_window(n)
-        self._step_table(n, out=win.table)
-        win.graph.replay()
-        self.optimizer.count += n
+        counters = [(self.optimizer, "count")]
         if self.ema is not None:
-            self.ema_state["steps"] += n
-        for fn, d in win.launches:
-            fn.launches += d
-        self.window_losses = win.losses
-
-    def _capture_stream(self):
-        if self._graph_stream is None:
-            self._graph_stream = torch.cuda.Stream(self.device)
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        return self._graph_stream
-
-    def _capture_window(self, n: int) -> _WindowGraph:
-        """Capture ``n`` steps of ``train_step``, each reading its row of a
-        static table, into one graph; the host's step counts and launch
-        counters are put back as they were, since nothing ran."""
-        table = self._step_table(n)
-        losses = torch.zeros((n,), device=self.device)
-        wrappers = [getattr(mod, name) for mod, names in COUNTED_WRAPPERS
-                    for name in names]
-        before = [fn.launches for fn in wrappers]
-        count = self.optimizer.count
-        ema_steps = None if self.ema is None else self.ema_state["steps"]
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        try:
-            with torch.cuda.graph(graph, pool=self._graph_pool,
-                                  stream=self._capture_stream()):
-                for j in range(n):
-                    losses[j] = self.train_step(row=table[j])
-            launches = [(fn, fn.launches - b)
-                        for fn, b in zip(wrappers, before)]
-        finally:
-            for fn, b in zip(wrappers, before):
-                fn.launches = b
-            self.optimizer.count = count
-            if ema_steps is not None:
-                self.ema_state["steps"] = ema_steps
-        # The gradients live in the graph's pool; replays do not set them.
-        for p in self.params:
-            p.grad = None
-        return _WindowGraph(graph, table, losses, launches)
+            counters.append((self.ema_state, "steps"))
+        self.window_losses = self.windows.run(
+            key, self._step_rows(n), self._window_body, counters=counters,
+            params=self.params, prepare=self._pin_window_state)
 
     def _pin_window_state(self):
         """Point the sampler's state at the tensors the graphs read: the
@@ -587,8 +498,7 @@ class Runner:
         the step that ``train`` resumes at."""
         print("Loading ckpt from:", path, flush=True)
         # The graphs read the tensors that this replaces.
-        self._train_window_cache.clear()
-        self._warm_windows.clear()
+        self.windows.clear()
         self._window_state.clear()
         with open(path, "rb") as f:
             ckpt = pickle.load(f)

@@ -1,14 +1,24 @@
 """Plenoxels runner: ray-pool training with TV regularizers, per-group
 learning-rate schedules and grid upsampling.
 
-Counterpart of `jnerf_tpu/runner/svox2_runner.py`, one eager step at a
-time (the JAX package chains 16 steps in a ``lax.scan`` window): MSE +
+Counterpart of `jnerf_tpu/runner/svox2_runner.py`.  As the JAX runner
+chains up to 16 steps in a ``lax.scan`` window, cut at every
+``upsamp_every`` steps and at the end, ``train`` runs each such window as
+one CUDA graph replay on a card (`runner/windows.py`; a loop of
+``train_step`` on the CPU or with ``graph=False``): the window's batches
+are staged into one static [n, batch, 9] input with one copy, each step
+reads its (lr_sigma, lr_sh) from a row of a table computed on the host,
+and an upsample drops the grid's graphs (the JAX loop clears its
+``window_cache``), so the next grid captures its own.  The grid's
+gradient is kernel V (`ops/voxel_grid.py`), summed in a fixed order.  A
+step is MSE +
 ``lambda_tv`` * TV(density) + ``lambda_tv_sh`` * TV(SH), SGD on density and
 RMSprop on SH (`optims/svox2_optim.py`) at svox2's delayed exponential
 learning rates, the grid upsampled at every ``upsamp_every`` steps along
 ``reso_list`` with the optimizer state made anew.  The sparse TV's row
 draws come from the runner's generator unless passed in (the JAX runner
-draws them from ``PRNGKey(step)``).  Renders go in chunks of 4096 rays,
+draws them from ``PRNGKey(step)``); the generator is registered with each
+graph.  Renders go in chunks of 4096 rays,
 the last padded with rays of ones.  As in the JAX runner, ``train`` writes
 no file; ``save`` and ``load`` write and read the grid in svox2's
 ``.npz`` schema.  Config values are read as the JAX runner reads them,
@@ -24,6 +34,11 @@ import torch
 
 from jnerf_tpu_torch.models.losses import img2mse, mse2psnr
 from jnerf_tpu_torch.optims.svox2_optim import PlenOptim, expon_lr
+from jnerf_tpu_torch.runner.windows import (
+    GraphWindows,
+    graph_windows,
+    window_length,
+)
 from jnerf_tpu_torch.utils.config import get_cfg
 from jnerf_tpu_torch.utils.registry import DATASETS, NETWORKS, build_from_cfg
 
@@ -71,6 +86,8 @@ class Svox2Runner:
         self.optim = PlenOptim(rms_beta=cfg.rms_beta or 0.95)
         self.opt_state = self.optim.init(self.grid.tables())
         self.gstep = 0
+        self.windows = GraphWindows(device, self.generator)
+        self.window_losses = None  # the [n] MSEs of the last window
         self.save_path = os.path.join(cfg.log_dir or "./logs", self.exp_name)
         os.makedirs(self.save_path, exist_ok=True)
 
@@ -81,10 +98,10 @@ class Svox2Runner:
 
     def train_step(self, rays_o, rays_d, rgb_gt, lr_sigma, lr_sh,
                    tv_rows=(None, None)):
-        """One step at learning rates ``lr_sigma`` / ``lr_sh``; ``tv_rows``
-        are the sparse TV's row draws (density, SH), or None each to draw
-        them.  Returns the batch's MSE before the update, without waiting
-        for the device."""
+        """One step at learning rates ``lr_sigma`` / ``lr_sh`` (floats, or
+        0-dim f32 tensors on the device); ``tv_rows`` are the sparse TV's
+        row draws (density, SH), or None each to draw them.  Returns the
+        batch's MSE before the update, without waiting for the device."""
         tables = self.grid.tables()
         for p in tables.values():
             p.grad = None
@@ -101,9 +118,41 @@ class Svox2Runner:
         self.optim.step(tables, self.opt_state, lr_sigma, lr_sh)
         return mse.detach()
 
+    def step_rows(self, n: int) -> np.ndarray:
+        """[n, 2] f32: (lr_sigma, lr_sh) of steps gstep .. gstep + n - 1."""
+        return np.array([[self.lr_sigma_fn(s), self.lr_sh_fn(s)]
+                         for s in range(self.gstep, self.gstep + n)],
+                        np.float32)
+
+    def _window_body(self, table, batches):
+        return torch.stack([
+            self.train_step(b[:, 0:3], b[:, 3:6], b[:, 6:9], row[0], row[1])
+            for row, b in zip(table, batches)])
+
+    def train_window(self, n: int, graph=None):
+        """Steps gstep .. gstep + n - 1 on the next ``n`` batches (not
+        advancing gstep) as one graph replay where `graph_windows` allows
+        (or ``graph`` says), else as a loop of ``train_step``; sets and
+        returns ``window_losses``."""
+        if graph is None:
+            graph = graph_windows(self.device)
+        ds = self.dataset["train"]
+        batches = np.stack([ds.next_host(self.batch_size) for _ in range(n)])
+        rows = self.step_rows(n)
+        if graph:
+            self.window_losses = self.windows.run(
+                n, rows, self._window_body, inputs=batches,
+                params=list(self.grid.tables().values()))
+        else:
+            self.window_losses = self.windows.eager(rows, self._window_body,
+                                                    batches)
+        return self.window_losses
+
     def upsample(self, reso):
-        """Resize the grid to ``reso`` and make the optimizer state anew."""
+        """Resize the grid to ``reso`` and make the optimizer state anew;
+        the graphs, which read the old tables, are dropped."""
         print(f"upsampling grid -> {list(reso)}", flush=True)
+        self.windows.clear()
         self.grid.upsample(tuple(reso))
         if self.grid.sparse:
             n_active = int((self.grid.cells >= 0).sum())
@@ -111,10 +160,11 @@ class Svox2Runner:
                   f"(cap {self.grid.cells.shape[0]})", flush=True)
         self.opt_state = self.optim.init(self.grid.tables())
 
-    def train(self, n_iters=None):
-        """``n_iters`` steps (the config's by default), upsampling at every
-        multiple of ``upsamp_every`` while ``reso_list`` has a next size;
-        returns the last step's MSE."""
+    def train(self, n_iters=None, graph=None):
+        """``n_iters`` steps (the config's by default) in windows,
+        upsampling at every multiple of ``upsamp_every`` while
+        ``reso_list`` has a next size; returns the last step's MSE.
+        ``graph=False`` runs every window as a loop of ``train_step``."""
         n_iters = n_iters or self.n_iters
         reso_idx = 0
         end = self.gstep + n_iters
@@ -124,10 +174,9 @@ class Svox2Runner:
                     and reso_idx + 1 < len(self.reso_list)):
                 reso_idx += 1
                 self.upsample(self.reso_list[reso_idx])
-            ro, rd, rgb = self.dataset["train"].next_batch(self.batch_size)
-            mse = self.train_step(ro, rd, rgb, self.lr_sigma_fn(self.gstep),
-                                  self.lr_sh_fn(self.gstep))
-            self.gstep += 1
+            n = window_length(self.gstep, end, (self.upsamp_every,))
+            mse = self.train_window(n, graph)[-1]
+            self.gstep += n
         return float(mse)
 
     @torch.no_grad()
@@ -166,5 +215,6 @@ class Svox2Runner:
 
     def load(self, path=None):
         path = path or os.path.join(self.save_path, "grid.npz")
+        self.windows.clear()
         self.grid.load_npz(path)
         self.opt_state = self.optim.init(self.grid.tables())

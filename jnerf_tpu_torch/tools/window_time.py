@@ -108,7 +108,7 @@ def run_path(args, device, graph: bool) -> dict:
         "base_mib": base * mib if cuda else None,
         "reserved_mib": (torch.cuda.memory_reserved(device) * mib
                          if cuda else None),
-        "graphs": len(runner._train_window_cache),
+        "graphs": len(runner.windows.cache),
         "loss": loss, "steps": at,
     }
     del runner

@@ -2,8 +2,23 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=256)
+def _device_const(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_const(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant tensor of ``values`` (a number or a tuple) on ``device``,
+    made once a (values, dtype, device) and shared: a CUDA graph can read
+    it, where ``torch.tensor(..., device=...)`` would copy from the host
+    while the graph is captured.  Callers must not write to it."""
+    return _device_const(values, dtype, torch.device(device))
 
 
 def enlarge(arr: torch.Tensor, size: int) -> torch.Tensor:

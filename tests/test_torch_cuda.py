@@ -810,7 +810,7 @@ def _window_runner(kind):
 
 
 def _window_counters():
-    from jnerf_tpu_torch.runner.runner import COUNTED_WRAPPERS
+    from jnerf_tpu_torch.runner.windows import COUNTED_WRAPPERS
 
     return {name: getattr(mod, name) for mod, names in COUNTED_WRAPPERS
             for name in names}
@@ -892,8 +892,8 @@ def test_graph_windows_equal_eager_windows(dev, kind):
         runs[graph] = (runner, losses, launches, _training_state(runner))
     g_runner, g_losses, g_launches, g_state = runs[True]
     _, e_losses, e_launches, e_state = runs[False]
-    assert len(g_runner._train_window_cache) >= 2, \
-        list(g_runner._train_window_cache)
+    assert len(g_runner.windows.cache) >= 2, \
+        list(g_runner.windows.cache)
     assert g_losses.numel() == 96
     assert torch.equal(g_losses.view(torch.uint8), e_losses.view(torch.uint8))
     differ = [k for k in e_state if not torch.equal(g_state[k], e_state[k])]
@@ -936,3 +936,265 @@ def test_transmittance_backward_is_torch_cumprods(dev):
         grads.append((out.detach(), a.grad))
     assert torch.equal(grads[0][0], grads[1][0])
     assert torch.equal(grads[0][1], grads[1][1])
+
+
+# ------------------------------------------------------------------ kernel V
+def _voxel_inputs(n, n_rows, dev, seed=0):
+    """Kernel V's inputs: rows with a hot one, weights with zeros, and
+    samples whose g is 0 in both tables (or in the SH table alone)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, n_rows, (n, 8), generator=g)
+    idx[n // 3:n // 2] = n_rows // 2
+    w = torch.rand((n, 8), generator=g)
+    w[::7, 3] = 0.0
+    gd = torch.randn((n, 1), generator=g)
+    gs = torch.randn((n, 27), generator=g)
+    gd[::5], gs[::5], gs[1::6] = 0.0, 0.0, -0.0
+    return [x.to(dev) for x in (idx, w, gd, gs)]
+
+
+VOXEL_SHAPES = [(37, 3), (4099, 1000), (100_003, 64 ** 3), (1 << 18, 4096)]
+
+
+@pytest.mark.parametrize("n,n_rows", VOXEL_SHAPES)
+def test_voxel_grad_is_its_plain_version_bit_for_bit(dev, n, n_rows):
+    """Kernel V equals its plain version run on CPU copies bit for bit
+    (on CUDA tensors the plain version's index_add_ adds with atomics),
+    and a second launch; its sort is the plain plan."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    idx, w, gd, gs = _voxel_inputs(n, n_rows, dev)
+    got = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows)
+    again = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows)
+    want = voxel_grid.corner_grad_plain(idx.cpu(), w.cpu(),
+                                        [gd.cpu(), gs.cpu()], n_rows)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a.cpu().view(torch.int32), c.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    start, order = voxel_grid.corner_grad_plan(idx, w, [gd, gs], n_rows)
+    p_start, p_order = voxel_grid.corner_grad_plan_plain(
+        idx.cpu(), w.cpu(), [gd.cpu(), gs.cpu()], n_rows)
+    assert torch.equal(start.cpu(), p_start)
+    assert torch.equal(order.cpu(), p_order)
+
+
+@pytest.mark.parametrize("n,n_rows", [(37, 3), (4099, 70000)])
+def test_voxel_grad_writes_inside_its_buffers(dev, n, n_rows):
+    """Kernel V launched on a work space and outputs with guard zones on
+    both sides: the guards stay as they were and the outputs equal the
+    plain version (rows with no item get +0.0)."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    idx, w, gd, gs = _voxel_inputs(n, n_rows, dev, seed=1)
+    pad, bufs = 4096, []
+
+    def guarded(size, dtype):
+        buf = torch.full((size + 2 * pad,), -7, dtype=dtype, device=dev)
+        bufs.append(buf)
+        return buf[pad:pad + size]
+
+    work = guarded(voxel_grid.grad_layout(n, 8, n_rows)[0], torch.int32)
+    outs = [guarded(n_rows, torch.float32), guarded(n_rows * 27,
+                                                    torch.float32)]
+    voxel_grid._launch_grad(idx, w, [gd, gs], n_rows, outs, work, False)
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert bool((buf[:pad] == -7).all() and (buf[-pad:] == -7).all())
+    want = voxel_grid.corner_grad_plain(idx.cpu(), w.cpu(),
+                                        [gd.cpu(), gs.cpu()], n_rows)
+    for o, c in zip(outs, want):
+        assert torch.equal(o.view(c.shape).cpu().view(torch.int32),
+                           c.view(torch.int32))
+
+
+def test_voxel_grad_in_the_corner_gather_and_refusals(dev):
+    """The corner gather's backward on the card is kernel V (one launch a
+    backward, the plain version's bits); the wrapper refuses what the
+    kernel does not take."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    spec = voxel_grid.VoxelGridSpec((20, 18, 22), 9)
+    gen = torch.Generator(dev).manual_seed(0)
+    d = torch.rand((20, 18, 22), generator=gen, device=dev).requires_grad_()
+    sh = torch.randn((20, 18, 22, 27), generator=gen,
+                     device=dev).requires_grad_()
+    pos = torch.rand((5000, 3), generator=gen, device=dev) * 21 - 0.5
+    before = voxel_grid.corner_grad.launches
+    sig, shc = voxel_grid.trilinear_sample(spec, d, sh, pos)
+    (sig.sum() + (shc * 0.5).sum()).backward()
+    assert voxel_grid.corner_grad.launches == before + 1
+    idx, w = voxel_grid.corners(spec, pos)
+    want = voxel_grid.corner_grad_plain(
+        idx.cpu(), w.cpu(), [torch.ones((5000, 1)),
+                             torch.full((5000, 27), 0.5)], spec.n_cells)
+    assert torch.equal(d.grad.reshape(-1, 1).cpu(), want[0])
+    assert torch.equal(sh.grad.reshape(-1, 27).cpu(), want[1])
+    ok = [idx, w, [torch.ones((5000, 1), device=dev)]]
+    for bad in ([idx.int(), w, ok[2]], [idx, w.double(), ok[2]],
+                [idx, w, [torch.ones((5000, 1), device=dev).t()]],
+                [idx, w, []]):
+        with pytest.raises(ValueError):
+            voxel_grid.corner_grad(*bad, spec.n_cells)
+
+
+# ---------------------------------------------------- the families' windows
+def _family_runner(kind, tmp_path):
+    """A tiny NeuS, Mip-NeRF or Plenoxels runner on the card over a scene
+    the port writes (the widths of tests/torch_parity.py's configs)."""
+    import textwrap
+    from pathlib import Path
+
+    from jnerf_tpu_torch.dataset.synthetic import (
+        make_synthetic_neus_scene, make_synthetic_scene,
+    )
+    from jnerf_tpu_torch.runner import MipRunner, NeuSRunner, Svox2Runner
+    from jnerf_tpu_torch.utils.config import init_cfg
+
+    root = Path(__file__).resolve().parents[1] / "projects"
+    cfg = tmp_path / f"{kind}.py"
+    if kind == "neus":
+        scene = make_synthetic_neus_scene(str(tmp_path / "scene"),
+                                          n_images=6, H=24, W=32)
+        cfg.write_text(textwrap.dedent(f"""\
+            _base_ = {str(root / "neus/configs/neus_womask.py")!r}
+            dataset = dict(dataset_dir={scene!r})
+            base_exp_dir = {str(tmp_path / "exp")!r}
+            end_iter = 40
+            batch_size = 64
+            warm_up_end = 2
+            anneal_end = 8
+            report_freq = 10
+            save_freq = 100000
+            val_freq = 100000
+            val_mesh_freq = 100000
+            model = dict(
+                nerf_network=dict(D=3, W=32, skips=[1]),
+                sdf_network=dict(d_out=65, d_hidden=64, n_layers=3,
+                                 skip_in=[2]),
+                rendering_network=dict(d_feature=64, d_hidden=32, n_layers=2))
+            render = dict(n_samples=16, n_importance=16, n_outside=4,
+                          up_sample_steps=2, perturb=1.0, _cover_=True,
+                          type="NeuSRenderer")
+        """))
+        init_cfg(str(cfg))
+        return NeuSRunner(device="cuda")
+    scene = str(tmp_path / "scene")
+    make_synthetic_scene(scene, n_train=4, n_val=2, n_test=2, H=32, W=32)
+    if kind == "mip":
+        cfg.write_text(textwrap.dedent(f"""\
+            _base_ = {str(root / "mipnerf/configs/mip_base.py")!r}
+            dataset_dir = {scene!r}
+            log_dir = {str(tmp_path / "logs")!r}
+            dataset = dict(
+                train=dict(root_dir=dataset_dir, batch_size=256),
+                val=dict(root_dir=dataset_dir, batch_size=256),
+                test=dict(root_dir=dataset_dir, batch_size=256))
+            tot_train_steps = 40
+            num_samples = 32
+            net_depth = 4
+            net_width = 64
+            net_width_condition = 32
+        """))
+        init_cfg(str(cfg))
+        return MipRunner(device="cuda")
+    cfg.write_text(textwrap.dedent(f"""\
+        _base_ = {str(root / "svox2/configs/svox2_base.py")!r}
+        dataset_dir = {scene!r}
+        log_dir = {str(tmp_path / "logs")!r}
+        dataset = dict(train=dict(root=dataset_dir, split='train'),
+                       test=dict(root=dataset_dir, split='test'))
+        model = dict(reso=24, radius=1.4)
+        reso_list = [[24] * 3, [48] * 3]
+        sparse_cell_threshold = 30000
+        density_thresh = 0.05
+        sparse_dilate = 1
+        batch_size = 512
+        upsamp_every = 32
+        lambda_tv = 1e-3
+        lambda_tv_sh = 1e-3
+    """))
+    init_cfg(str(cfg))
+    return Svox2Runner(device="cuda")
+
+
+def _family_state(runner):
+    """Every tensor a family's run carries forward, as raw bytes."""
+    if hasattr(runner, "grid"):
+        st = dict(runner.grid.tables())
+        st.update(dict(runner.grid.named_buffers()))
+        st["sh_rms"] = runner.opt_state["sh_rms"]
+        counts = [runner.gstep]
+    else:
+        st = {f"param {i}": p for i, p in enumerate(runner.params)}
+        for i, p in enumerate(runner.params):
+            for k, v in runner.optimizer.state[p].items():
+                st[f"adam {k} {i}"] = v
+        counts = [runner.optimizer.count]
+    st = {k: v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+          for k, v in st.items()}
+    st["generator"] = runner.generator.get_state()
+    st["counts"] = torch.tensor(counts)
+    return st
+
+
+@pytest.mark.parametrize("kind", ["neus", "mip", "svox2"])
+def test_family_graph_windows_equal_eager(dev, kind, tmp_path):
+    """From one seed, each family's train() through graph windows (twice)
+    and through the eager loop ends in equal bits in every parameter,
+    optimizer state, count, grid buffer and the generator, with equal
+    per-step losses and launch counts; Plenoxels runs dense, upsamples
+    (dropping its graphs) and runs sparse, kernel V launched once a
+    step."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    runs = []
+    for graph in (True, True, False):
+        runner = _family_runner(kind, tmp_path / str(len(runs)))
+        losses = []
+        orig = runner.train_window
+
+        def train_window(n, graph_=None, orig=orig):
+            out = orig(n, graph_)
+            losses.append(out.clone())
+            return out
+
+        runner.train_window = train_window
+        voxel_grid.corner_grad.launches = 0
+        if kind == "svox2":  # 2 dense windows, the upsample, 2 sparse
+            runner.train(64, graph=graph)
+        else:
+            runner.train(graph=graph)
+        torch.cuda.synchronize()
+        runs.append((torch.cat(losses).cpu(), _family_state(runner),
+                     voxel_grid.corner_grad.launches,
+                     len(runner.windows.cache)))
+        del runner
+    (l0, s0, v0, g0), (l1, s1, v1, _), (l2, s2, v2, g2) = runs
+    steps = 64 if kind == "svox2" else 40
+    assert g0 >= 1 and g2 == 0
+    assert l0.shape[0] == steps
+    for loss, st, v in ((l1, s1, v1), (l2, s2, v2)):
+        assert torch.equal(l0.view(torch.uint8), loss.view(torch.uint8))
+        differ = [k for k in s0 if not torch.equal(s0[k], st[k])]
+        assert not differ, differ
+        assert v == v0
+    assert v0 == (steps if kind == "svox2" else 0)
+
+
+def test_pixelnerf_repeats_from_a_seed(dev):
+    """Two pixelNeRF runs from one seed (cuDNN pinned to its deterministic
+    algorithms, the resize's backward in a fixed order) end in equal
+    bits."""
+    from jnerf_tpu_torch.projects.pixelnerf import main as pix
+
+    images, poses, focal = pix.make_synthetic(6, 48, 48)
+    runs = []
+    for _ in range(2):
+        model = pix.build_model("cuda", net_width=64)
+        hist = pix.train(model, images, poses, focal, epochs=1, batch=512)
+        runs.append((hist["step_loss"], {k: v.detach().cpu() for k, v in
+                                         model.state_dict().items()}))
+    (l1, s1), (l2, s2) = runs
+    assert len(l1) >= 4 and l1 == l2
+    for k in s1:
+        assert torch.equal(s1[k].view(torch.uint8), s2[k].view(torch.uint8)), k

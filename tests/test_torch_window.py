@@ -219,8 +219,8 @@ def test_cpu_and_mesh_runners_take_the_eager_loop(port_cfg, tmp_path):
             loss = runner.train_range(0, 20)
             assert len(calls) == 20 and torch.isfinite(loss)
             assert runner.window_losses.shape == (4,)
-            assert not runner._train_window_cache
-            assert not runner._warm_windows
+            assert not runner.windows.cache
+            assert not runner.windows.warm
             assert runner.optimizer.count == 20
     finally:
         dist.destroy_process_group()
