@@ -208,8 +208,12 @@ which raises on failure:
    printed.  pixelNeRF at the script's widths trains a few steps twice
    from one seed with equal bits.  Kernel V is held to its plain version
    on CPU copies bit for bit, to a second launch and inside guard zones
-   on phase 14's dense and sparse inputs, and timed beside the plain
-   version and index_add_ of the materialized products.
+   on phase 14's dense and sparse inputs (the dense grid's sample path,
+   the sparse grid's item path), its sort to the plain plan, and timed
+   beside the plain version, index_add_ of the materialized products
+   alone and the whole index_add_ path (keep mask, compaction, products
+   and index_add_), with its device time split by CUDA kernel into
+   compaction, sort, row starts and sum.
 
 Each of phases 9-23 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
@@ -3205,21 +3209,37 @@ def run_window_graphs(torch, Runner, ngp_synthetic_cfg, counters):
 FAMILY_WINDOWS = 2
 PIX_REPEAT_VIEWS = 2  # 2 x 100^2 rays: 9 steps of 2048 rays
 VOXEL_GUARD = 4096
+# Kernel V's stages, each opened by the first CUDA kernel (a substring of
+# the profiler's name) of its own; the scans and the memset that follow a
+# stage's kernel count to it.
+VOXEL_STAGES = (("compaction", ("voxel_live_kernel", "voxel_compact_kernel")),
+                ("sort", ("bin_count_live_kernel", "bin_scatter_live_kernel")),
+                ("row starts", ("key_runs_kernel", "emset")),
+                ("sum", ("voxel_weights_kernel", "voxel_tile_kernel")))
+VOXEL_SPLIT_REPS = 3
 
 
-def voxel_work(n, corners, n_rows, channels, kept) -> dict:
-    """Kernel V: idx [n, corners] int64, w [n, corners] and the g's [n,
-    channels] f32 in, the whole gradients [n_rows, channels] f32 out; a
-    multiply and an add a kept item and channel."""
-    nbytes = 12 * n * corners + 4 * n * channels + 4 * n_rows * channels
+def voxel_work(n, corners, n_rows, channels, kept, live, read,
+               samples) -> dict:
+    """Kernel V: the g's [n, channels] f32 read for every sample (they
+    decide which samples are ``live``), idx and w for the live samples
+    alone, the whole gradients [n_rows, channels] f32 written; a multiply
+    and an add a kept item and channel.  Item path: a live sample's
+    ``corners`` f32 weights, and the int64 rows of the ``read`` items of
+    live samples whose weight is not 0.  Sample path: a live sample's
+    int64 base row, and the weights of the ``read`` live samples whose
+    base row is on the grid."""
+    idx_w = (8 * live + 4 * corners * read if samples
+             else 4 * corners * live + 8 * read)
+    nbytes = 4 * n * channels + 4 * n_rows * channels + idx_w
     return work(nbytes, 2 * kept * channels, F32_FLOP_PER_S)
 
 
 def capture_voxel_inputs(torch, runner, n_rays):
     """One MSE backward of ``runner``'s grid on ``n_rays`` rays of its
     training pool in its current order (no update, the batch cursor
-    untouched), with kernel V's inputs recorded: (idx, w, g's, n_rows) on
-    the CPU."""
+    untouched), with kernel V's inputs recorded: (idx, w, g's, n_rows,
+    offsets), the tensors on the CPU."""
     from jnerf_tpu_torch.ops import voxel_grid
 
     ds = runner.dataset["train"]
@@ -3229,9 +3249,10 @@ def capture_voxel_inputs(torch, runner, n_rays):
     seen = []
     orig = voxel_grid.corner_grad
 
-    def corner_grad(idx, w, grads, n_rows):
-        seen.append((idx.cpu(), w.cpu(), [g.cpu() for g in grads], n_rows))
-        return orig(idx, w, grads, n_rows)
+    def corner_grad(idx, w, grads, n_rows, offsets=None):
+        seen.append((idx.cpu(), w.cpu(), [g.cpu() for g in grads], n_rows,
+                     offsets))
+        return orig(idx, w, grads, n_rows, offsets)
 
     # The launch bumps this wrapper's count, not the path's.
     corner_grad.launches = 0
@@ -3247,34 +3268,79 @@ def capture_voxel_inputs(torch, runner, n_rays):
     return got
 
 
+def voxel_split(torch, fn, reps=VOXEL_SPLIT_REPS):
+    """Kernel V's device ms a launch by stage (VOXEL_STAGES), from
+    voxel_time.kernel_times over ``reps`` launches of ``fn``: the CUDA
+    kernels in the order they ran, each counted to the stage last opened.
+    The profiler's times are approximate: they need not add up to the
+    CUDA events' time of a launch."""
+    from jnerf_tpu_torch.tools.voxel_time import kernel_times
+
+    split, stage = {name: 0.0 for name, _ in VOXEL_STAGES}, None
+    for kernel, ms in kernel_times(torch, fn, reps):
+        for name, marks in VOXEL_STAGES:
+            if any(m in kernel for m in marks):
+                stage = name
+        if stage is not None:
+            split[stage] += ms
+    return split
+
+
+def voxel_tiles_over(torch, start, offsets, n_rows, tile, room):
+    """(tiles, tiles whose entries pass a window's ``room``) of kernel V's
+    sum, from its key starts: a warp's tile of rows [r0, r1) holds the
+    entries of keys [r0 - off, r1 - off) for each offset; one over its
+    room takes more than one window."""
+    p = start.long()
+    r0 = torch.arange(0, n_rows, tile)
+    r1 = torch.clamp(r0 + tile, max=n_rows)
+    entries = sum(p[torch.clamp(r1 - o, 0, n_rows)]
+                  - p[torch.clamp(r0 - o, 0, n_rows)]
+                  for o in (offsets or (0,)))
+    return r0.numel(), int((entries > room).sum())
+
+
 def check_voxel_kernel(torch, name, inputs):
     """Kernel V on one step's inputs: bit for bit its plain version on CPU
     copies and a second launch, its plan the plain plan, a launch inside
     guard zones writing nothing outside them; timed beside the plain
-    version on the card and index_add_ of the materialized products (the
-    scatter alone), with its bound."""
+    version on the card, index_add_ of the materialized products (the
+    scatter alone) and the whole index_add_ path (the keep mask, the
+    compaction, the products and index_add_), with its bound, its
+    compaction, sort and row starts alone (CUDA events) and its device
+    time split by stage (the profiler's, approximate)."""
     from jnerf_tpu_torch.ops import voxel_grid
 
-    idx_c, w_c, g_c, n_rows = inputs
+    idx_c, w_c, g_c, n_rows, offs = inputs
     idx, w = idx_c.cuda(), w_c.cuda()
     grads = [g.cuda() for g in g_c]
-    n, K = idx.shape
+    n, K = w.shape
     C = sum(g.shape[1] for g in grads)
-    want = voxel_grid.corner_grad_plain(idx_c, w_c, g_c, n_rows)
-    got = voxel_grid.corner_grad(idx, w, grads, n_rows)
-    again = voxel_grid.corner_grad(idx, w, grads, n_rows)
+    rows_c = voxel_grid.corner_rows(idx_c, n_rows, offs)
+    want = voxel_grid.corner_grad_plain(rows_c, w_c, g_c, n_rows)
+    got = voxel_grid.corner_grad(idx, w, grads, n_rows, offs)
+    again = voxel_grid.corner_grad(idx, w, grads, n_rows, offs)
     voxel_grid.corner_grad.launches -= 2  # checks, not the path
     torch.cuda.synchronize()
     same = all(same_bits(torch, a.cpu(), b) for a, b in zip(got, want))
     repeat = all(same_bits(torch, a, b) for a, b in zip(got, again))
     err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want))
-    start, order = voxel_grid.corner_grad_plan(idx, w, grads, n_rows)
+    start, order = voxel_grid.corner_grad_plan(idx, w, grads, n_rows, offs)
     p_start, p_order = voxel_grid.corner_grad_plan_plain(idx_c, w_c, g_c,
-                                                         n_rows)
+                                                         n_rows, offs)
     plan_ok = torch.equal(start.cpu(), p_start) and torch.equal(order.cpu(),
                                                                p_order)
-    kept = int(p_start[-1])
-    del want, again, start, order, p_start, p_order
+    kept = int(voxel_grid._live_items(rows_c, w_c, g_c, n_rows).sum())
+    entries = int(p_start[-1])
+    live_c = voxel_grid._live_samples(g_c, n, "cpu")
+    live = int(live_c.sum())
+    # The idx and w that the function must read (voxel_work).
+    read = entries if offs is not None else int(
+        ((w_c != 0) & live_c[:, None]).sum())
+    layout = voxel_grid.grad_layout(n, K, n_rows, offs is not None)
+    tiles, over = voxel_tiles_over(torch, p_start, offs, n_rows,
+                                   *layout[3:5])
+    del want, again, start, order, p_start, p_order, rows_c, live_c
     bufs = []
 
     def guarded(size, dtype):
@@ -3283,42 +3349,81 @@ def check_voxel_kernel(torch, name, inputs):
         bufs.append(buf)
         return buf[VOXEL_GUARD:VOXEL_GUARD + size]
 
-    work_g = guarded(voxel_grid.grad_layout(n, K, n_rows)[0], torch.int32)
+    work_g = guarded(layout[0], torch.int32)
     outs_g = [guarded(n_rows * g.shape[1], torch.float32) for g in grads]
-    voxel_grid._launch_grad(idx, w, grads, n_rows, outs_g, work_g, False)
+    voxel_grid._launch_grad(idx, w, grads, n_rows, outs_g, work_g, False,
+                            offs)
     torch.cuda.synchronize()
     guards_ok = all(bool((b[:VOXEL_GUARD] == -7).all()
                          and (b[-VOXEL_GUARD:] == -7).all()) for b in bufs)
     guarded_same = all(same_bits(torch, o.view(a.shape), a)
                        for o, a in zip(outs_g, got))
     del bufs, work_g, outs_g, got
-    # index_add_ of the products, materialized once outside the timing.
-    keep = voxel_grid._live_items(idx, w, grads, n_rows)
+    # index_add_ of the products, materialized once outside the timing
+    # (from the corner rows, on the sample path too).
+    rows_d = voxel_grid.corner_rows(idx, n_rows, offs)
+    keep = voxel_grid._live_items(rows_d, w, grads, n_rows)
     items = torch.nonzero(keep).squeeze(1)
-    rows = idx.reshape(-1)[items]
+    rows = rows_d.reshape(-1)[items]
     vals = w.reshape(-1)[items, None] * torch.cat(grads, 1)[items // K]
     del keep, items
 
     def library():
         torch.zeros((n_rows, C), device="cuda").index_add_(0, rows, vals)
 
+    def library_path():
+        keep = voxel_grid._live_items(rows_d, w, grads, n_rows)
+        items = torch.nonzero(keep).squeeze(1)
+        vals = w.reshape(-1)[items, None] * torch.cat(grads, 1)[items // K]
+        torch.zeros((n_rows, C), device="cuda").index_add_(
+            0, rows_d.reshape(-1)[items], vals)
+
+    def kernel():
+        voxel_grid.corner_grad(idx, w, grads, n_rows, offs)
+
+    work_p = torch.empty(layout[0], dtype=torch.int32, device="cuda")
+    no_outs = [torch.empty(0, device="cuda") for _ in grads]
+
+    def plan():  # the compaction, the sort and the row starts
+        voxel_grid._launch_grad(idx, w, grads, n_rows, no_outs, work_p,
+                                True, offs)
+
     ms, plain_ms, four = time_pair(
-        lambda: voxel_grid.corner_grad(idx, w, grads, n_rows),
-        lambda: voxel_grid.corner_grad_plain(idx, w, grads, n_rows))
-    voxel_grid.corner_grad.launches = 0  # timing, not the path
+        kernel, lambda: voxel_grid.corner_grad_plain(rows_d, w, grads,
+                                                     n_rows))
     library_ms = cuda_ms(library, iters=10)
     del rows, vals
-    stats = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, err=err,
-                 n=n, n_rows=n_rows, kept=kept,
-                 **voxel_work(n, K, n_rows, C, kept))
+    library_path_ms = cuda_ms(library_path, iters=10)
+    plan_ms = cuda_ms(plan, iters=10)
+    del work_p, rows_d
+    split = voxel_split(torch, kernel)
+    voxel_grid.corner_grad.launches = 0  # timing, not the path
+    stats = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 library_path_ms=library_path_ms, plan_ms=plan_ms,
+                 split_ms_profiler=split, err=err, n=n, n_rows=n_rows,
+                 kept=kept, live=live, entries=entries,
+                 path="item" if offs is None else "sample", tiles=tiles,
+                 tiles_over_window=over,
+                 **voxel_work(n, K, n_rows, C, kept, live, read,
+                              offs is not None))
     print(f"kernel V [{name}]: {n} samples x {K} corners into {n_rows} rows "
-          f"x {C} channels, {kept} items kept; bit for bit the plain "
-          f"version on CPU copies {same} (max |diff| {err:.3e}), a second "
-          f"launch {repeat}, the plan {plan_ok}, inside guard zones "
-          f"{guards_ok and guarded_same}; {ms:.4f} ms (plain {plain_ms:.4f}, "
-          f"index_add_ {library_ms:.4f}, bound {stats['bound_ms']:.4f} by "
-          f"{stats['bound_by']}; runs {[round(x, 4) for x in four]})",
-          flush=True)
+          f"x {C} channels, {live} samples live, {kept} items kept, the "
+          f"{stats['path']} path sorting {entries} entries; {over} of "
+          f"{tiles} warp tiles over a window; bit for bit the plain version "
+          f"on CPU copies {same} (max |diff| {err:.3e}), a second launch "
+          f"{repeat}, the plan {plan_ok}, inside guard zones "
+          f"{guards_ok and guarded_same}; {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, index_add_ of the materialized products alone "
+          f"{library_ms:.4f}, the index_add_ path with the keep mask, "
+          f"compaction and products {library_path_ms:.4f}, bound "
+          f"{stats['bound_ms']:.4f} by {stats['bound_by']} "
+          f"({stats['bytes']} bytes); runs {[round(x, 4) for x in four]}); "
+          f"the compaction, sort and row starts alone {plan_ms:.4f} ms (CUDA "
+          f"events); device ms a launch by stage (profiler, approximate, "
+          f"{VOXEL_SPLIT_REPS} launches): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f", total {sum(split.values()):.4f} against {ms:.4f} by CUDA "
+          f"events; on {card_line()}", flush=True)
     if not (same and repeat and plan_ok and guards_ok and guarded_same):
         raise SystemExit(f"kernel V [{name}] disagrees with its plain "
                          f"version, a second launch, its plan or its "
@@ -3926,12 +4031,27 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
         also_replaces=["jnerf_tpu/ops/voxel_grid.py:255"],
         max_abs_err=max(v["err"] for v in vox.values()),
         library="index_add_ of the materialized [kept, 28] products: the "
-        "scatter alone",
+        "scatter alone (library_path_ms: with the keep mask, the compaction "
+        "and the products timed too); plan_ms: the compaction, the sort "
+        "and the row starts alone (CUDA events); split_ms_profiler: the "
+        "device ms by stage from torch.profiler, approximate (it need not "
+        "add up to ms)",
+        library_path_ms=vox["dense 256^3"]["library_path_ms"],
+        plan_ms=vox["dense 256^3"]["plan_ms"],
+        split_ms_profiler=vox["dense 256^3"]["split_ms_profiler"],
+        path=vox["dense 256^3"]["path"],
+        cuda_kernels=["voxel_live_kernel", "scan_reduce_kernel",
+                      "scan_top_kernel", "scan_down_kernel",
+                      "voxel_compact_kernel",
+                      "bin_count_live_kernel<RadixBins>",
+                      "bin_scatter_live_kernel<RadixBins>", "key_runs_kernel",
+                      "voxel_weights_kernel", "voxel_tile_kernel"],
         window_path_launches=families["families"]["Plenoxels"]["launches"][
             "V"],
         **{"sparse 512^3": {m: vox["sparse 512^3"][m] for m in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
-            "n_rows", "kept")}}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_path_ms", "plan_ms", "split_ms_profiler", "path", "n",
+            "n_rows", "live", "kept")}}))
     kernels += envelope_rows(env)
     for k in kernels:
         k["max_abs_err"] = float(k["max_abs_err"])

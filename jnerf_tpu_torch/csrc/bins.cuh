@@ -39,6 +39,13 @@
 // and K3 sort by output row this way and then walk each row's segment:
 // key_starts turns the sorted keys into each row's first position (each
 // run's length, then the same scan).
+//
+// A list's length may be on the device instead (kernel V: a list
+// compacted on the card, whose length the host never reads, so that a
+// CUDA graph can capture it): bin_count_live_kernel and
+// bin_scatter_live_kernel take it as n_dev, counts and buffers are sized
+// for n_items, the chunks past the device's count are empty (their counts
+// 0), and a grid of at most kDeviceCountBlocks blocks walks the chunks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +60,7 @@ constexpr int kScanItems = 4;  // a scan block covers 4096 counts
 constexpr int kScanSpan = kScanThreads * kScanItems;
 constexpr int kSmemMax = 232448;  // 227 KB: a block's dynamic shared memory
 constexpr int kMaxGroups = 32;
+constexpr uint32_t kDeviceCountBlocks = 2048;
 
 // Exclusive scan of one value a thread over a block of NT threads;
 // *total (if given) gets the block's sum.  Ends in a barrier, so ws (NT /
@@ -192,13 +200,13 @@ inline size_t bin_scatter_smem(uint32_t n_bins) {
 // memory; a thread loads its items before it counts.  Blocks are numbered
 // chunk * groups + list, so the lists' blocks of one chunk run together.
 template <class P>
-__global__ void __launch_bounds__(kBinThreads)
-bin_count_kernel(P p, BinShape S, int32_t* __restrict__ counts) {
+__device__ __forceinline__ void count_chunk(const P& p, const BinShape& S,
+                                            int32_t* __restrict__ counts,
+                                            int32_t* hist, uint32_t l,
+                                            uint32_t c, uint32_t n_items) {
   constexpr int kItems = P::kItems;
   constexpr uint32_t kChunk = kItems * kBinThreads;
-  extern __shared__ int32_t hist[];  // [n_bins]
-  const uint32_t l = blockIdx.x % S.groups, c = blockIdx.x / S.groups;
-  const uint32_t s1 = min(S.n_items, (c + 1) * kChunk);
+  const uint32_t s1 = min(n_items, (c + 1) * kChunk);
   typename P::Item item[kItems];
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
@@ -218,15 +226,51 @@ bin_count_kernel(P p, BinShape S, int32_t* __restrict__ counts) {
     counts[((size_t)l * S.n_bins + k) * S.n_chunks + c] = hist[k];
 }
 
+template <class P>
+__global__ void __launch_bounds__(kBinThreads)
+bin_count_kernel(P p, BinShape S, int32_t* __restrict__ counts) {
+  extern __shared__ int32_t hist[];  // [n_bins]
+  count_chunk(p, S, counts, hist, blockIdx.x % S.groups,
+              blockIdx.x / S.groups, S.n_items);
+}
+
+// A list's items: n_items, or fewer, as the device's count says.
+__device__ __forceinline__ uint32_t live_items(uint32_t n_items,
+                                               const int32_t* n_dev) {
+  return min(n_items, (uint32_t)max(__ldg(n_dev), 0));
+}
+
+// Pass 1 with each list's length on the device: the counts of the
+// chunks past it are 0 (written in the counts' own order), and the blocks
+// walk the chunks that hold items.
+template <class P>
+__global__ void __launch_bounds__(kBinThreads)
+bin_count_live_kernel(P p, BinShape S, int32_t* __restrict__ counts,
+                      const int32_t* __restrict__ n_dev) {
+  constexpr uint32_t kChunk = P::kItems * kBinThreads;
+  extern __shared__ int32_t hist[];  // [n_bins]
+  const uint32_t n_items = live_items(S.n_items, n_dev);
+  const uint32_t live = (n_items + kChunk - 1) / kChunk;
+  const uint32_t empty = S.n_chunks - live;
+  const uint64_t n_zero = (uint64_t)S.groups * S.n_bins * empty;
+  for (uint64_t t = (uint64_t)blockIdx.x * kBinThreads + threadIdx.x;
+       t < n_zero; t += (uint64_t)gridDim.x * kBinThreads)
+    counts[t / empty * S.n_chunks + live + t % empty] = 0;
+  for (uint32_t b = blockIdx.x; b < S.groups * live;
+       b += gridDim.x) {  // block-uniform
+    count_chunk(p, S, counts, hist, b % S.groups, b / S.groups, n_items);
+    __syncthreads();  // hist is zeroed again for the next chunk
+  }
+}
+
 // Pass 3: each item's record written to its bin in list order (see the
 // head of this file).
 template <class P>
-__global__ void __launch_bounds__(kBinThreads)
-bin_scatter_kernel(P p, BinShape S, const int32_t* __restrict__ offsets) {
+__device__ __forceinline__ void scatter_chunk(
+    const P& p, const BinShape& S, const int32_t* __restrict__ offsets,
+    float4* smem4, int32_t* ws, uint32_t l, uint32_t c, uint32_t n_items) {
   constexpr int kItems = P::kItems;  // groups of 32 a warp
   constexpr uint32_t kChunk = kItems * kBinThreads;
-  extern __shared__ float4 smem4[];
-  __shared__ int32_t ws[kBinWarps];
   const uint32_t nbins = S.n_bins;
   float4* stage = smem4;  // [kChunk * kStageBytes / 16]
   int32_t* wcnt = reinterpret_cast<int32_t*>(
@@ -234,7 +278,6 @@ bin_scatter_kernel(P p, BinShape S, const int32_t* __restrict__ offsets) {
   int32_t* lstart = wcnt + kBinWarps * nbins;       // [nbins]
   int32_t* gbase = lstart + nbins;                  // [nbins]
   uint16_t* skey = reinterpret_cast<uint16_t*>(gbase + nbins);  // [kChunk]
-  const uint32_t l = blockIdx.x % S.groups, c = blockIdx.x / S.groups;
   const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (uint32_t k = threadIdx.x; k < nbins; k += kBinThreads) {
     gbase[k] = __ldg(offsets + ((size_t)l * nbins + k) * S.n_chunks + c);
@@ -245,7 +288,7 @@ bin_scatter_kernel(P p, BinShape S, const int32_t* __restrict__ offsets) {
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const uint32_t s = s_warp + it * 32;
-    if (s < S.n_items) p.fetch(l, s, item[it]);
+    if (s < n_items) p.fetch(l, s, item[it]);
   }
   __syncthreads();
   int32_t* mine = wcnt + warp * nbins;
@@ -253,7 +296,7 @@ bin_scatter_kernel(P p, BinShape S, const int32_t* __restrict__ offsets) {
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const uint32_t s = s_warp + it * 32;
-    key[it] = s < S.n_items ? p.bin(l, s, item[it]) : -1;
+    key[it] = s < n_items ? p.bin(l, s, item[it]) : -1;
     rank[it] = 0;
     const uint32_t peers = __match_any_sync(0xffffffffu, key[it]);
     const uint32_t before = peers & ((1u << lane) - 1);
@@ -297,6 +340,33 @@ bin_scatter_kernel(P p, BinShape S, const int32_t* __restrict__ offsets) {
   for (int32_t i = threadIdx.x; i < kept; i += kBinThreads) {
     const int k = skey[i];
     p.write(stage, i, gbase[k] + i - lstart[k]);
+  }
+}
+
+template <class P>
+__global__ void __launch_bounds__(kBinThreads)
+bin_scatter_kernel(P p, BinShape S, const int32_t* __restrict__ offsets) {
+  extern __shared__ float4 smem4[];
+  __shared__ int32_t ws[kBinWarps];
+  scatter_chunk(p, S, offsets, smem4, ws, blockIdx.x % S.groups,
+                blockIdx.x / S.groups, S.n_items);
+}
+
+// Pass 3 with each list's length on the device (bin_count_live_kernel's).
+template <class P>
+__global__ void __launch_bounds__(kBinThreads)
+bin_scatter_live_kernel(P p, BinShape S, const int32_t* __restrict__ offsets,
+                        const int32_t* __restrict__ n_dev) {
+  constexpr uint32_t kChunk = P::kItems * kBinThreads;
+  extern __shared__ float4 smem4[];
+  __shared__ int32_t ws[kBinWarps];
+  const uint32_t n_items = live_items(S.n_items, n_dev);
+  const uint32_t live = (n_items + kChunk - 1) / kChunk;
+  for (uint32_t b = blockIdx.x; b < S.groups * live;
+       b += gridDim.x) {  // block-uniform
+    scatter_chunk(p, S, offsets, smem4, ws, b % S.groups, b / S.groups,
+                  n_items);
+    __syncthreads();  // the shared arrays are filled again for the next one
   }
 }
 
@@ -381,14 +451,18 @@ inline int bits_for(uint64_t v) {
 // Sorts the pairs (min(keys[t], limit), t - l * n_items) of each list l
 // stably by key, ping-ponging between (kA, pA) and (kB, pB); returns the
 // buffers that hold the result in *keys_out / *pay_out.  counts holds
-// plan.counts_ints ints.  n_items >= 1.
+// plan.counts_ints ints.  n_items >= 1.  pay0: the pairs' payloads
+// instead of t - l * n_items; n_dev: a list's items on the device (at
+// most n_items).  (kB, pB) may be (keys, pay0).
 inline int run_radix(const RadixPlan& R, uint32_t n_items, uint32_t groups,
                      const uint32_t* keys, uint32_t limit, uint32_t* kA,
                      uint32_t* pA, uint32_t* kB, uint32_t* pB,
                      int32_t* counts, cudaStream_t st,
-                     const uint32_t** keys_out, const uint32_t** pay_out) {
+                     const uint32_t** keys_out, const uint32_t** pay_out,
+                     const uint32_t* pay0 = nullptr,
+                     const int32_t* n_dev = nullptr) {
   const uint32_t* kin = keys;
-  const uint32_t* pin = nullptr;
+  const uint32_t* pin = pay0;
   uint32_t shift = 0;
   for (int i = 0; i < R.passes; ++i) {
     uint32_t* kout = (i & 1) ? kB : kA;
@@ -399,15 +473,27 @@ inline int run_radix(const RadixPlan& R, uint32_t n_items, uint32_t groups,
                       S.n_bins - 1, i == 0 ? limit : 0xffffffffu};
     const int64_t m = bin_counts(S);
     const size_t smem = bin_scatter_smem<RadixBins>(S.n_bins);
-    int err = allow_smem((const void*)bin_scatter_kernel<RadixBins>, smem);
-    if (err) return err;
-    const int blocks = (int)(R.n_chunks * groups);
-    bin_count_kernel<RadixBins><<<blocks, kBinThreads,
-                                  S.n_bins * sizeof(int32_t), st>>>(b, S,
-                                                                    counts);
-    launch_scan(counts, m, counts + m + 1, st);
-    bin_scatter_kernel<RadixBins><<<blocks, kBinThreads, smem, st>>>(b, S,
+    const size_t hist = S.n_bins * sizeof(int32_t);
+    int blocks = (int)(R.n_chunks * groups);
+    if (n_dev) {
+      int err = allow_smem((const void*)bin_scatter_live_kernel<RadixBins>,
+                           smem);
+      if (err) return err;
+      if (blocks > (int)kDeviceCountBlocks) blocks = kDeviceCountBlocks;
+      bin_count_live_kernel<RadixBins><<<blocks, kBinThreads, hist, st>>>(
+          b, S, counts, n_dev);
+      launch_scan(counts, m, counts + m + 1, st);
+      bin_scatter_live_kernel<RadixBins><<<blocks, kBinThreads, smem, st>>>(
+          b, S, counts, n_dev);
+    } else {
+      int err = allow_smem((const void*)bin_scatter_kernel<RadixBins>, smem);
+      if (err) return err;
+      bin_count_kernel<RadixBins><<<blocks, kBinThreads, hist, st>>>(b, S,
                                                                      counts);
+      launch_scan(counts, m, counts + m + 1, st);
+      bin_scatter_kernel<RadixBins><<<blocks, kBinThreads, smem, st>>>(
+          b, S, counts);
+    }
     kin = kout;
     pin = pout;
     shift += R.bits[i];
@@ -427,20 +513,23 @@ struct KeyGroups {
 
 // Each run of equal keys in the sorted lists adds its length to its row's
 // count: -j at its first position j, +(j + 1) at its last (integer adds,
-// two a run, whatever their order).
+// two a run, whatever their order).  n_dev as in run_radix.
 __global__ void __launch_bounds__(kBinThreads)
 key_runs_kernel(const uint32_t* __restrict__ keys, uint32_t n_items,
-                uint32_t groups, KeyGroups G, int32_t* __restrict__ hist) {
-  const uint64_t total = (uint64_t)n_items * groups;
-  for (uint64_t t = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += (uint64_t)gridDim.x * blockDim.x) {
-    const uint32_t l = (uint32_t)(t / n_items);
-    const uint32_t j = (uint32_t)(t - (uint64_t)l * n_items);
+                uint32_t groups, KeyGroups G, int32_t* __restrict__ hist,
+                const int32_t* __restrict__ n_dev) {
+  const uint32_t n_live = n_dev ? live_items(n_items, n_dev) : n_items;
+  const uint64_t total = (uint64_t)n_live * groups;
+  for (uint64_t u = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       u < total; u += (uint64_t)gridDim.x * blockDim.x) {
+    const uint32_t l = (uint32_t)(u / n_live);
+    const uint32_t j = (uint32_t)(u - (uint64_t)l * n_live);
+    const uint64_t t = (uint64_t)l * n_items + j;
     const uint32_t k = __ldg(keys + t);
     if (k >= G.size[l]) continue;
     int32_t* h = hist + G.base[l] + k;
     if (j == 0 || __ldg(keys + t - 1) != k) atomicAdd(h, -(int32_t)j);
-    if (j + 1 == n_items || __ldg(keys + t + 1) != k)
+    if (j + 1 == n_live || __ldg(keys + t + 1) != k)
       atomicAdd(h, (int32_t)j + 1);
   }
 }
@@ -449,17 +538,20 @@ key_runs_kernel(const uint32_t* __restrict__ keys, uint32_t n_items,
 // first sorted position of row r (the rows' run lengths, then scanned),
 // start[m] the number kept.  A list whose keys all land is laid out in
 // the sorted order at l * n_items, so start[] indexes the sorted pairs
-// directly.
+// directly.  n_dev as in run_radix.
 inline void key_starts(const uint32_t* sorted_keys, uint32_t n_items,
                        uint32_t groups, const KeyGroups& G, int64_t m,
-                       int32_t* start, cudaStream_t st) {
+                       int32_t* start, cudaStream_t st,
+                       const int32_t* n_dev = nullptr) {
   cudaMemsetAsync(start, 0, (size_t)m * sizeof(int32_t), st);
   uint64_t total = (uint64_t)n_items * groups;
   uint64_t blocks = (total + kBinThreads - 1) / kBinThreads;
   if (blocks > (1u << 20)) blocks = 1u << 20;
+  if (n_dev && blocks > kDeviceCountBlocks) blocks = kDeviceCountBlocks;
   if (blocks < 1) blocks = 1;
   key_runs_kernel<<<(int)blocks, kBinThreads, 0, st>>>(sorted_keys, n_items,
-                                                       groups, G, start);
+                                                       groups, G, start,
+                                                       n_dev);
   launch_scan(start, m, start + m + 1, st);
 }
 

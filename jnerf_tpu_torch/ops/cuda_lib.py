@@ -182,11 +182,11 @@ def envelope_lib() -> ctypes.CDLL:
     return lib
 
 
-# voxel_grad(idx, w, g[], out[], widths[], n_tables, work, n, K, n_rows,
-#            plan_only, stream)
-_VOXEL_GRAD_ARGS = [_P] * 5 + [_I, _P] + [_I] * 4 + [_P]
-# voxel_grad_layout(n, K, n_rows, out[3]) -> int32s
-_VOXEL_LAYOUT_ARGS = [_I] * 3 + [_P]
+# voxel_grad(idx, w, g[], out[], widths[], n_tables, offsets, work, n, K,
+#            n_rows, plan_only, stream)
+_VOXEL_GRAD_ARGS = [_P] * 5 + [_I, _P, _P] + [_I] * 4 + [_P]
+# voxel_grad_layout(n, K, n_rows, samples, out[6]) -> int32s
+_VOXEL_LAYOUT_ARGS = [_I] * 4 + [_P]
 
 
 @functools.lru_cache(maxsize=None)

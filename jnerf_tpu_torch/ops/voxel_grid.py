@@ -12,14 +12,19 @@ order, and its backward is `corner_grad` (with plain indexing, autograd
 would build one full-size gradient table per corner: eight 1.8 GB SH
 tables at 256^3).  On the card that is kernel V (`csrc/voxel_grid.cu`),
 the counterpart of the XLA scatter that autodiff makes of the JAX code's
-``jnp.take``: one stable sort of the (sample, corner) items by row serves
-both tables, and each gradient row is summed from +0.0 in item order and
-written once, so every launch gives the same bits and a CUDA graph can
-capture it (no float atomics, no read of the device).  Items that add only
-zeros are left out: a weight of 0 (the sparse grid's empty corners) or a
-sample whose gradient is 0 in every table (those past a ray's exit).  On
-the CPU `corner_grad` runs its plain version, `corner_grad_plain`, which
-sums in the same order.
+``jnp.take``: the kept entries are compacted on the card, one stable sort
+of them serves both tables, and each gradient row is summed from +0.0 in
+item order and written once, so every launch gives the same bits and a
+CUDA graph can capture it (no float atomics, no read of the device).
+Items that add only zeros are left out: a weight of 0 (the sparse grid's
+empty corners) or a sample whose gradient is 0 in every table (those past
+a ray's exit).  The dense grid's gather passes its corners' row offsets
+(`corner_offsets`), and kernel V then sorts the live samples by base row
+instead of the items by row (the sample path: it hands over the base
+rows alone, so the corner rows cannot disagree with the offsets); the
+sparse grid's ``links`` give no such offsets (the item path).  On the
+CPU `corner_grad` runs its plain version, `corner_grad_plain`, which sums
+in the same order.
 
 The sparse grid keeps svox2's ``links`` indirection: a [X, Y, Z] int32
 volume (-1 = empty) indexes capacity-bounded ``density_data`` /
@@ -89,19 +94,23 @@ def sparse_capacity(n: int) -> int:
 
 
 class _CornerGather(torch.autograd.Function):
-    """out_t[n] = sum_c w[n, c] * table_t[idx[n, c]] for each table t,
+    """out_t[n] = sum_c w[n, c] * table_t[row_c[n]] for each table t,
     differentiated with respect to the tables (as the JAX runner's step
-    is), not to the weights."""
+    is), not to the weights.  The rows: idx [N, K], or with ``offsets``
+    idx [N] base rows and row_c = idx + offsets[c] (see `corner_grad`)."""
 
     @staticmethod
-    def forward(ctx, idx, w, *tables):
+    def forward(ctx, idx, w, offsets, *tables):
         ctx.save_for_backward(idx, w)
+        ctx.offsets = offsets
         ctx.shapes = [table.shape for table in tables]
+        rows = ([idx[:, c] for c in range(idx.shape[1])] if offsets is None
+                else [idx + o for o in offsets])
         outs = []
         for table in tables:
             out = 0.0
-            for c in range(idx.shape[1]):
-                out = out + w[:, c, None] * table[idx[:, c]]
+            for c, row in enumerate(rows):
+                out = out + w[:, c, None] * table[row]
             outs.append(out)
         return tuple(outs)
 
@@ -110,24 +119,31 @@ class _CornerGather(torch.autograd.Function):
         idx, w = ctx.saved_tensors
         if ctx.needs_input_grad[1]:
             raise NotImplementedError("corner_gather: no gradient for w")
-        want = [k for k in range(len(grads)) if ctx.needs_input_grad[2 + k]]
+        want = [k for k in range(len(grads)) if ctx.needs_input_grad[3 + k]]
         g_tables = [None] * len(grads)
         if not want:
-            return (None, None, *g_tables)
+            return (None, None, None, *g_tables)
         outs = corner_grad(idx, w, [grads[k].float().contiguous()
-                                    for k in want], ctx.shapes[want[0]][0])
+                                    for k in want], ctx.shapes[want[0]][0],
+                           ctx.offsets)
         for k, out in zip(want, outs):
             g_tables[k] = out.reshape(ctx.shapes[k])
-        return (None, None, *g_tables)
+        return (None, None, None, *g_tables)
+
+
+def _live_samples(grads, n, device):
+    """[N] bool: the samples some table's g of which is not 0."""
+    live = torch.zeros(n, dtype=torch.bool, device=device)
+    for g in grads:
+        live |= (g != 0).any(dim=1)
+    return live
 
 
 def _live_items(idx, w, grads, n_rows):
     """[N * K] bool: the (sample, corner) items that add more than zeros:
     weight not 0, row in [0, n_rows), and some table's g of the sample not
     0."""
-    live = torch.zeros(idx.shape[0], dtype=torch.bool, device=idx.device)
-    for g in grads:
-        live |= (g != 0).any(dim=1)
+    live = _live_samples(grads, idx.shape[0], idx.device)
     keep = (w != 0) & live[:, None] & (idx >= 0) & (idx < n_rows)
     return keep.reshape(-1)
 
@@ -146,33 +162,64 @@ def corner_grad_plain(idx, w, grads, n_rows: int):
         0, rows, w_kept * g[sample]) for g in grads]
 
 
-def corner_grad_plan_plain(idx, w, grads, n_rows: int):
+def corner_rows(idx, n_rows: int, offsets=None):
+    """`corner_grad`'s corner rows [N, K]: idx itself on the item path
+    (``offsets`` None); on the sample path the base rows idx [N] plus each
+    offset, every row -1 (left out) for a sample whose base row lies
+    outside [0, n_rows), as kernel V leaves such a sample out."""
+    if offsets is None:
+        return idx
+    rows = idx[:, None] + torch.tensor(offsets, dtype=idx.dtype,
+                                       device=idx.device)
+    on_grid = ((idx >= 0) & (idx < n_rows))[:, None]
+    return torch.where(on_grid, rows, torch.full_like(rows, -1))
+
+
+def corner_grad_entries_plain(idx, w, grads, n_rows: int, offsets=None):
+    """Plain version of kernel V's compaction: (keys, payloads) int64 of
+    the kept entries in entry order.  Item path (``offsets`` None): the
+    kept items (`_live_items`) in item order, keyed by row, payload
+    n * K + c.  Sample path (idx the [N] base rows): the live samples whose
+    base row lies in [0, n_rows), in sample order, keyed by base row,
+    payload n."""
+    if offsets is None:
+        items = torch.nonzero(_live_items(idx, w, grads, n_rows)).squeeze(1)
+        return idx.reshape(-1)[items], items
+    keep = _live_samples(grads, idx.shape[0], idx.device) & (idx >= 0) \
+        & (idx < n_rows)
+    samples = torch.nonzero(keep).squeeze(1)
+    return idx[samples], samples
+
+
+def corner_grad_plan_plain(idx, w, grads, n_rows: int, offsets=None):
     """Plain version of kernel V's sort: (start [n_rows + 1] int32, order
-    [kept] int32), the kept items sorted stably by row and each row's first
-    position; start[n_rows] is the number kept."""
-    keep = _live_items(idx, w, grads, n_rows)
-    rows = idx.reshape(-1)
-    order = torch.sort(torch.where(keep, rows, n_rows), stable=True).indices
-    order = order[:int(keep.sum())]
+    [kept] int32), the compaction's entries (`corner_grad_entries_plain`:
+    items, or on the sample path live samples) sorted stably by key and
+    each key's first position; start[n_rows] is the number kept."""
+    keys, pay = corner_grad_entries_plain(idx, w, grads, n_rows, offsets)
+    order = pay[torch.sort(keys, stable=True).indices]
     start = torch.zeros(n_rows + 1, dtype=torch.int64, device=idx.device)
-    start[1:] = torch.cumsum(torch.bincount(rows[keep], minlength=n_rows), 0)
+    start[1:] = torch.cumsum(torch.bincount(keys, minlength=n_rows), 0)
     return start.to(torch.int32), order.to(torch.int32)
 
 
 @functools.lru_cache(maxsize=64)
-def grad_layout(n: int, K: int, n_rows: int):
-    """Kernel V's work space: (int32s, where the row starts lie in it,
-    where the sorted items lie in it)."""
+def grad_layout(n: int, K: int, n_rows: int, samples: bool = False):
+    """Kernel V's work space on the sample or item path: (int32s, where
+    the key starts lie in it, where the sorted payloads lie in it, the
+    rows a warp of the sum owns, the entries its window holds in shared
+    memory, the most channels it takes)."""
     from .cuda_lib import voxel_grid_lib
 
-    out = (ctypes.c_longlong * 3)()
-    if voxel_grid_lib().voxel_grad_layout(n, K, n_rows, out) < 0:
+    out = (ctypes.c_longlong * 6)()
+    if voxel_grid_lib().voxel_grad_layout(n, K, n_rows, int(samples),
+                                          out) < 0:
         raise ValueError(f"kernel V does not take {n} samples of {K} "
                          f"corners into {n_rows} rows")
     return tuple(out)
 
 
-def _launch_grad(idx, w, grads, n_rows, outs, work, plan_only):
+def _launch_grad(idx, w, grads, n_rows, outs, work, plan_only, offsets=None):
     from .cuda_lib import Launch, voxel_grid_lib
 
     global _VOXEL_GRAD
@@ -182,22 +229,36 @@ def _launch_grad(idx, w, grads, n_rows, outs, work, plan_only):
     g_ptrs = (ctypes.c_void_p * T)(*[g.data_ptr() for g in grads])
     o_ptrs = (ctypes.c_void_p * T)(*[o.data_ptr() for o in outs])
     widths = (ctypes.c_int * T)(*[g.shape[1] for g in grads])
-    n, K = idx.shape
+    offs = None if offsets is None else (ctypes.c_int * len(offsets))(
+        *offsets)
+    n, K = w.shape
     _VOXEL_GRAD(idx.get_device(), idx.data_ptr(), w.data_ptr(), g_ptrs,
-                o_ptrs, widths, T, work.data_ptr(), n, K, n_rows,
+                o_ptrs, widths, T, offs, work.data_ptr(), n, K, n_rows,
                 int(plan_only))
 
 
 _VOXEL_GRAD = None
 
 
-def _require_cuda_grad_inputs(idx, w, grads):
+def _require_cuda_grad_inputs(idx, w, grads, n_rows, offsets):
     n = idx.shape[0]
-    if idx.dtype != torch.int64 or idx.dim() != 2 or not 1 <= idx.shape[1] <= 8:
-        raise ValueError(f"idx must be [N, K<=8] int64, got "
-                         f"{tuple(idx.shape)} {idx.dtype}")
-    if w.dtype != torch.float32 or w.shape != idx.shape:
-        raise ValueError(f"w must be {tuple(idx.shape)} float32, got "
+    if offsets is None:
+        if idx.dtype != torch.int64 or idx.dim() != 2 \
+                or not 1 <= idx.shape[1] <= 8:
+            raise ValueError(f"idx must be [N, K<=8] int64, got "
+                             f"{tuple(idx.shape)} {idx.dtype}")
+        K = idx.shape[1]
+    else:
+        if idx.dtype != torch.int64 or idx.dim() != 1:
+            raise ValueError(f"with offsets, idx must be the [N] int64 base "
+                             f"rows, got {tuple(idx.shape)} {idx.dtype}")
+        K = len(offsets)
+        if not 1 <= K <= 8 or offsets[0] != 0 or not all(
+                isinstance(o, int) and 0 <= o < n_rows for o in offsets):
+            raise ValueError(f"offsets must be 1 to 8 ints in [0, {n_rows}), "
+                             f"the first 0, got {offsets}")
+    if w.dtype != torch.float32 or tuple(w.shape) != (n, K):
+        raise ValueError(f"w must be {(n, K)} float32, got "
                          f"{tuple(w.shape)} {w.dtype}")
     if not 1 <= len(grads) <= 4:
         raise ValueError(f"kernel V takes 1 to 4 tables, got {len(grads)}")
@@ -210,23 +271,32 @@ def _require_cuda_grad_inputs(idx, w, grads):
             raise ValueError("kernel V takes tensors on one device")
         if not t.is_contiguous():
             raise ValueError("kernel V takes contiguous tensors")
+    if n:
+        most = grad_layout(n, K, n_rows, offsets is not None)[5]
+        if sum(g.shape[1] for g in grads) > most:
+            raise ValueError(f"kernel V takes at most {most} channels")
 
 
-def corner_grad(idx, w, grads, n_rows: int):
+def corner_grad(idx, w, grads, n_rows: int, offsets=None):
     """Kernel V: the gradients of `corner_gather` with respect to its
     tables, one [n_rows, C_t] f32 a g [N, C_t], each row summed in
     `corner_grad_plain`'s order, so equal to it bit for bit on every
-    launch.  On CPU tensors, that plain version."""
+    launch.  idx [N, K] the corner rows (the item path); or, with
+    ``offsets`` (K ints, the first 0: the dense grid's `corner_offsets`),
+    idx [N] the base rows, corner c's row idx + offsets[c] (the sample
+    path; a sample whose base row lies outside [0, n_rows) adds nothing,
+    `corner_rows`).  On CPU tensors, the plain version."""
     if idx.device.type == "cpu":
-        return corner_grad_plain(idx, w, grads, n_rows)
-    _require_cuda_grad_inputs(idx, w, grads)
+        return corner_grad_plain(corner_rows(idx, n_rows, offsets), w, grads,
+                                 n_rows)
+    _require_cuda_grad_inputs(idx, w, grads, n_rows, offsets)
     outs = [torch.empty((n_rows, g.shape[1]), dtype=torch.float32,
                         device=idx.device) for g in grads]
     if idx.numel() == 0:
         return [o.zero_() for o in outs]
-    work = torch.empty(grad_layout(idx.shape[0], idx.shape[1], n_rows)[0],
+    work = torch.empty(grad_layout(*w.shape, n_rows, offsets is not None)[0],
                        dtype=torch.int32, device=idx.device)
-    _launch_grad(idx, w, grads, n_rows, outs, work, False)
+    _launch_grad(idx, w, grads, n_rows, outs, work, False, offsets)
     corner_grad.launches += 1
     return outs
 
@@ -234,26 +304,27 @@ def corner_grad(idx, w, grads, n_rows: int):
 corner_grad.launches = 0
 
 
-def corner_grad_plan(idx, w, grads, n_rows: int):
+def corner_grad_plan(idx, w, grads, n_rows: int, offsets=None):
     """Kernel V's sort alone, as `corner_grad_plan_plain` returns it (on
     CPU tensors, that plain version).  Not counted."""
     if idx.device.type == "cpu":
-        return corner_grad_plan_plain(idx, w, grads, n_rows)
-    _require_cuda_grad_inputs(idx, w, grads)
-    total, at_start, at_order = grad_layout(idx.shape[0], idx.shape[1],
-                                            n_rows)
+        return corner_grad_plan_plain(idx, w, grads, n_rows, offsets)
+    _require_cuda_grad_inputs(idx, w, grads, n_rows, offsets)
+    total, at_start, at_order = grad_layout(*w.shape, n_rows,
+                                            offsets is not None)[:3]
     work = torch.empty(total, dtype=torch.int32, device=idx.device)
     outs = [torch.empty((0,), dtype=torch.float32, device=idx.device)
             for _ in grads]
-    _launch_grad(idx, w, grads, n_rows, outs, work, True)
+    _launch_grad(idx, w, grads, n_rows, outs, work, True, offsets)
     start = work[at_start:at_start + n_rows + 1]
     return start, work[at_order:at_order + int(start[-1])]
 
 
-def corner_gather(idx, w, *tables):
+def corner_gather(idx, w, *tables, offsets=None):
     """Trilinear gather of [n_rows, C_t] tables at corner rows ``idx``
-    [N, 8] with weights ``w`` [N, 8]; returns one [N, C_t] per table."""
-    return _CornerGather.apply(idx, w, *tables)
+    [N, 8] with weights ``w`` [N, 8]; returns one [N, C_t] per table.
+    With ``offsets``, idx is the [N] base rows (see `corner_grad`)."""
+    return _CornerGather.apply(idx, w, offsets, *tables)
 
 
 def corners(spec: VoxelGridSpec, pos):
@@ -276,12 +347,23 @@ def corners(spec: VoxelGridSpec, pos):
     return torch.stack(idx, 1), torch.stack(w, 1)
 
 
+def corner_offsets(spec: VoxelGridSpec):
+    """The rows of `corners`' eight corners less its corner 0's: its
+    corner c is row idx[:, 0] + offsets[c] (it clamps the base cell to
+    reso - 2 on each axis)."""
+    X, Y, Z = spec.reso
+    return tuple((c & 1) * Y * Z + ((c >> 1) & 1) * Z + ((c >> 2) & 1)
+                 for c in range(8))
+
+
 def trilinear_sample(spec: VoxelGridSpec, density, sh, pos):
     """Sample density [X, Y, Z] and SH [X, Y, Z, C] at grid-space positions
     [N, 3] (0..reso-1); returns (sigma [N], sh_coeffs [N, C])."""
     idx, w = corners(spec, pos)
-    sigma, sh_c = corner_gather(idx, w, density.reshape(spec.n_cells, 1),
-                                sh.reshape(spec.n_cells, -1))
+    sigma, sh_c = corner_gather(idx[:, 0].contiguous(), w,
+                                density.reshape(spec.n_cells, 1),
+                                sh.reshape(spec.n_cells, -1),
+                                offsets=corner_offsets(spec))
     return sigma[:, 0], sh_c
 
 

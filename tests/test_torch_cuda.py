@@ -1037,6 +1037,241 @@ def test_voxel_grad_in_the_corner_gather_and_refusals(dev):
             voxel_grid.corner_grad(*bad, spec.n_cells)
 
 
+def _dense_voxel_inputs(reso, n, dev, seed=0, dead=0.3, cluster=False):
+    """Kernel V's inputs on the sample path: corners() of positions running
+    past every border of a ``reso`` grid (``cluster``: all within a cell of
+    one point, so that a tile's rows hold more items than its shared
+    memory), g of a ``dead`` share of samples 0 in both tables (and of
+    some in the SH table alone); (base rows, w, gd, gs, n_rows, offsets),
+    as the dense corner gather hands them over."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    spec = voxel_grid.VoxelGridSpec(reso, 9)
+    g = torch.Generator().manual_seed(seed)
+    hi = torch.tensor(reso, dtype=torch.float32)
+    if cluster:
+        pos = hi / 2 + torch.rand((n, 3), generator=g) - 0.5
+    else:
+        pos = torch.rand((n, 3), generator=g) * (hi + 1.0) - 1.0
+    pos[:7] = torch.tensor([[-2.0, -2.0, -2.0], [0.0, 0.0, 0.0],
+                            [reso[0] - 1.0, reso[1] - 1.0, reso[2] - 1.0],
+                            [reso[0] + 3.0, 0.5, 1.0], [1.0, 1.0, 1.0],
+                            [reso[0] - 2.0, reso[1] - 2.0, 0.0],
+                            [0.25, reso[1] + 0.5, reso[2] - 1.5]])
+    idx, w = voxel_grid.corners(spec, pos)
+    gd = torch.randn((n, 1), generator=g)
+    gs = torch.randn((n, 27), generator=g)
+    off = torch.rand(n, generator=g) < dead
+    gd[off], gs[off] = 0.0, 0.0
+    gs[torch.rand(n, generator=g) < 0.1] = -0.0
+    return ([x.to(dev) for x in (idx[:, 0].contiguous(), w, gd, gs)]
+            + [spec.n_cells, voxel_grid.corner_offsets(spec)])
+
+
+def _assert_voxel_plain(got, idx, w, grads, n_rows, offsets=None):
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    rows = voxel_grid.corner_rows(idx.cpu(), n_rows, offsets)
+    want = voxel_grid.corner_grad_plain(rows, w.cpu(),
+                                        [g.cpu() for g in grads], n_rows)
+    for a, c in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.parametrize("reso,n,cluster", [
+    ((20, 18, 22), 5000, False), ((64, 64, 64), 200_000, False),
+    ((40, 33, 50), 30_000, True)])
+def test_voxel_grad_sample_path_is_its_plain_version(dev, reso, n, cluster):
+    """The dense grid's sample path (corners() indices of positions past
+    every border, the corner offsets given) equals the plain version on
+    CPU copies bit for bit, and a second launch; its sort is the plain
+    sample plan.  The clustered case puts more items in a tile than its
+    shared memory holds."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    idx, w, gd, gs, n_rows, offs = _dense_voxel_inputs(reso, n, dev,
+                                                       cluster=cluster)
+    got = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, offs)
+    again = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, offs)
+    _assert_voxel_plain(got, idx, w, [gd, gs], n_rows, offs)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    start, order = voxel_grid.corner_grad_plan(idx, w, [gd, gs], n_rows,
+                                               offs)
+    p_start, p_order = voxel_grid.corner_grad_plan_plain(
+        idx.cpu(), w.cpu(), [gd.cpu(), gs.cpu()], n_rows, offs)
+    assert torch.equal(start.cpu(), p_start)
+    assert torch.equal(order.cpu(), p_order)
+    if cluster:  # a warp's rows hold more entries than its window
+        tile, room = voxel_grid.grad_layout(n, 8, n_rows, True)[3:5]
+        p = p_start.long()
+        r0 = torch.arange(0, n_rows, tile)
+        r1 = torch.clamp(r0 + tile, max=n_rows)
+        entries = sum(p[torch.clamp(r1 - o, 0, n_rows)]
+                      - p[torch.clamp(r0 - o, 0, n_rows)] for o in offs)
+        assert int(entries.max()) > room
+
+
+def test_voxel_grad_under_one_percent_kept(dev):
+    """A sparse-grid-shaped case on the item path: most samples dead, most
+    corners of weight 0, under 1% of the items kept; bit for bit the plain
+    version and its plan."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    n, n_rows = 300_000, 1 << 20
+    idx, w, gd, gs = _voxel_inputs(n, n_rows, dev, seed=2)
+    gen = torch.Generator(dev).manual_seed(5)
+    dead = torch.rand(n, generator=gen, device=dev) < 0.99
+    gd[dead], gs[dead] = 0.0, 0.0
+    w[torch.rand((n, 8), generator=gen, device=dev) < 0.5] = 0.0
+    got = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows)
+    _assert_voxel_plain(got, idx, w, [gd, gs], n_rows)
+    start, order = voxel_grid.corner_grad_plan(idx, w, [gd, gs], n_rows)
+    kept = int(start[-1])
+    assert 0 < kept < n * 8 // 100
+    p_start, p_order = voxel_grid.corner_grad_plan_plain(
+        idx.cpu(), w.cpu(), [gd.cpu(), gs.cpu()], n_rows)
+    assert torch.equal(start.cpu(), p_start)
+    assert torch.equal(order.cpu(), p_order)
+
+
+@pytest.mark.parametrize("samples", [False, True])
+def test_voxel_grad_nothing_kept(dev, samples):
+    """Every g 0 (or -0.0): nothing is kept and every row is +0.0, on both
+    paths."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    if samples:
+        idx, w, gd, gs, n_rows, offs = _dense_voxel_inputs((30, 31, 29),
+                                                           20_000, dev)
+    else:
+        (idx, w, gd, gs), n_rows, offs = _voxel_inputs(20_000, 70_000,
+                                                       dev), 70_000, None
+    gd.zero_()
+    gs.fill_(-0.0)
+    got = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, offs)
+    for a in got:
+        assert bool((a == 0).all()) and not bool(torch.signbit(a).any())
+    start, order = voxel_grid.corner_grad_plan(idx, w, [gd, gs], n_rows,
+                                               offs)
+    assert int(start[-1]) == 0 and order.numel() == 0
+    assert bool((start == 0).all())
+
+
+@pytest.mark.parametrize("samples", [False, True])
+def test_voxel_grad_in_a_cuda_graph(dev, samples):
+    """corner_grad captured in a CUDA graph and replayed on new inputs
+    copied into the captured buffers equals eager launches on them, and
+    the plain version."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    def inputs(seed):
+        if samples:
+            return _dense_voxel_inputs((48, 40, 44), 60_000, dev, seed=seed)
+        return (_voxel_inputs(60_000, 90_000, dev, seed=seed)
+                + [90_000, None])
+
+    idx, w, gd, gs, n_rows, offs = inputs(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: the build, the layout's cache
+        voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, offs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, offs)
+    for seed in (1, 2):
+        new = inputs(seed)
+        for dst, src in zip((idx, w, gd, gs), new):
+            dst.copy_(src)
+        graph.replay()
+        eager = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, offs)
+        torch.cuda.synchronize()
+        for a, b in zip(outs, eager):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        _assert_voxel_plain(outs, idx, w, [gd, gs], n_rows, offs)
+
+
+@pytest.mark.parametrize("samples", [False, True])
+def test_voxel_grad_paths_write_inside_their_buffers(dev, samples):
+    """Each path launched on a work space and outputs with guard zones on
+    both sides (the outputs off 16-byte alignment too): the guards stay as
+    they were and the outputs equal the plain version."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    if samples:
+        idx, w, gd, gs, n_rows, offs = _dense_voxel_inputs((25, 26, 27),
+                                                           9000, dev, seed=3)
+    else:
+        (idx, w, gd, gs), n_rows, offs = _voxel_inputs(9000, 17_000, dev,
+                                                       seed=3), 17_000, None
+    n = w.shape[0]
+    for pad in (4096, 4097):
+        bufs = []
+
+        def guarded(size, dtype):
+            buf = torch.full((size + 2 * pad,), -7, dtype=dtype, device=dev)
+            bufs.append(buf)
+            return buf[pad:pad + size]
+
+        work = guarded(voxel_grid.grad_layout(n, 8, n_rows,
+                                              samples)[0], torch.int32)
+        outs = [guarded(n_rows, torch.float32),
+                guarded(n_rows * 27, torch.float32)]
+        voxel_grid._launch_grad(idx, w, [gd, gs], n_rows, outs, work, False,
+                                offs)
+        torch.cuda.synchronize()
+        for buf in bufs:
+            assert bool((buf[:pad] == -7).all() and (buf[-pad:] == -7).all())
+        _assert_voxel_plain([outs[0].view(n_rows, 1),
+                             outs[1].view(n_rows, 27)],
+                            idx, w, [gd, gs], n_rows, offs)
+
+
+def test_voxel_grad_refuses_bad_offsets(dev):
+    """The sample path's offsets: K ints in [0, n_rows), the first 0, one
+    a column of w; its idx the [N] base rows, so that no corner row can
+    disagree with them ([N, K] rows with offsets are refused)."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    idx, w, gd, gs, n_rows, offs = _dense_voxel_inputs((10, 10, 10), 100,
+                                                       dev)
+    for bad in (offs[:7], (1,) + offs[1:], offs[:7] + (n_rows,),
+                offs[:7] + (-1,), offs[:7] + (3.0,)):
+        with pytest.raises(ValueError):
+            voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, bad)
+    rows = voxel_grid.corner_rows(idx, n_rows, offs)
+    for bad in ([rows, w], [idx[:, None], w], [idx.int(), w],
+                [idx, w[:, :7]]):
+        with pytest.raises(ValueError):
+            voxel_grid.corner_grad(*bad, [gd, gs], n_rows, offs)
+
+
+def test_voxel_grad_sample_path_base_rows_off_the_grid(dev):
+    """Base rows below 0, past the last row and near it (some corners
+    past the grid): the card gives the CPU's corner_grad bit for bit; a
+    sample whose base row is off the grid adds nothing, a corner past the
+    grid is left out."""
+    from jnerf_tpu_torch.ops import voxel_grid
+
+    idx, w, gd, gs, n_rows, offs = _dense_voxel_inputs((21, 19, 23),
+                                                       20_000, dev, seed=4)
+    gen = torch.Generator().manual_seed(6)
+    picks = torch.randint(0, idx.shape[0], (3000,), generator=gen).to(dev)
+    idx[picks[:1000]] = -torch.randint(1, 600, (1000,),
+                                       generator=gen).to(dev)
+    idx[picks[1000:2000]] = n_rows + torch.randint(
+        0, 50, (1000,), generator=gen).to(dev)
+    idx[picks[2000:]] = n_rows - 1 - torch.randint(
+        0, 600, (1000,), generator=gen).to(dev)
+    got = voxel_grid.corner_grad(idx, w, [gd, gs], n_rows, offs)
+    want = voxel_grid.corner_grad(idx.cpu(), w.cpu(), [gd.cpu(), gs.cpu()],
+                                  n_rows, offs)
+    for a, c in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), c.view(torch.int32))
+    _assert_voxel_plain(got, idx, w, [gd, gs], n_rows, offs)
+
+
 # ---------------------------------------------------- the families' windows
 def _family_runner(kind, tmp_path):
     """A tiny NeuS, Mip-NeRF or Plenoxels runner on the card over a scene
