@@ -184,7 +184,11 @@ which raises on failure:
    process, through graph windows; the parameters, Adam's moments and
    count, the EMA, the occupancy grid's state, the generator's state and
    every step's loss (read from each window's loss buffer) must be equal
-   bit for bit, and kernel B counted in every step;
+   bit for bit, and kernel B counted in every step; then vanilla NeRF
+   (phase 11's config, two refresh windows through graphs) and
+   Recursive-NeRF (the script's widths, 40 iterations across the first
+   stage transition), each trained twice from one seed, every parameter
+   (and Adam moment, grid state; anchors) and loss equal bit for bit;
 22. graph windows against eager ones: the headline for 4 windows, the xor
    hash (f2l16) and the fused-MLP headline for 2, each from one seed
    through ``train_range`` (graph replays) and through
@@ -213,9 +217,21 @@ which raises on failure:
    beside the plain version, index_add_ of the materialized products
    alone and the whole index_add_ path (keep mask, compaction, products
    and index_add_), with its device time split by CUDA kernel into
-   compaction, sort, row starts and sum.
+   compaction, sort, row starts and sum;
+24. the other 17 archived probes' ports (`jnerf_tpu_torch/tools/archive/`:
+   the march split, fused against plain MLP, f4l8 against f2l16, the step
+   A/B and the step's tiers, the library gather and scatter-add rates,
+   the hash path by stage, kernel B between guard zones, the hard-scene
+   NaN hunt for 512 steps and the dry run's start-up at two gloo ranks),
+   each through its main in this process at the archive's sizes, with the
+   launch counters set to 0 just before and read just after: each must
+   exit 0 and launch its kernels, kernel B's three cases must equal the
+   twin with the guards intact, the fused MLP sections must stay within
+   the JAX tests' tolerances of the plain chain, the NaN hunt must end
+   finite, and each section without a counterpart, asked for alone, must
+   exit with status 2.
 
-Each of phases 9-23 prints its time and its peak device memory.  To make
+Each of phases 9-24 prints its time and its peak device memory.  To make
 room for phase 18, phase 10 runs at 384^3 (was 512^3), phase 12 for 800
 steps (was 1000) and phase 13 for 384 (was 512).
 
@@ -3083,6 +3099,77 @@ def run_repeat(torch, Runner, ngp_synthetic_cfg, hash_nbr, hash_xor):
     return dict(launches=out, phase_s=secs, peak_mib=peak)
 
 
+# Phase 21, continued: vanilla NeRF (phase 11's config, two refresh
+# windows through graphs) and Recursive-NeRF (the script's widths,
+# REC_REPEAT_ITERS iterations across the first stage transition), each
+# trained twice from one seed.
+REC_REPEAT_ITERS, REC_REPEAT_STEP1 = 40, 20
+
+
+def run_family_repeat(torch, Runner, tmp):
+    """Phase 21 for the NGP runner's vanilla-NeRF network and for
+    Recursive-NeRF: two runs from one seed in this process; raises unless
+    both end in equal bits (every parameter, Adam moment, grid state and
+    step loss for vanilla NeRF; every parameter and anchor and every
+    iteration's MSE for Recursive-NeRF).  Returns the steps compared."""
+    from jnerf_tpu_torch.projects.pixelnerf.main import make_synthetic
+    from jnerf_tpu_torch.projects.recursive_nerf import main as rec
+    from jnerf_tpu_torch.utils.config import init_cfg
+
+    t_phase = phase_start(torch)
+    out = {}
+    runs = []
+    for _ in range(2):
+        init_cfg(os.path.join(tmp, "cfg_nerf.py"))
+        runner = Runner(device="cuda")
+        steps = 2 * runner.sampler.update_den_freq
+        losses = train_logged(torch, runner, steps)
+        if not runner.windows.cache:
+            raise SystemExit("repeat [vanilla NeRF]: no window ran as a graph")
+        runs.append((losses, training_state(torch, runner)))
+        del runner
+    (l1, s1), (l2, s2) = runs
+    differ = [k for k in s1 if not same_bits(torch, s1[k], s2[k])]
+    if not same_bits(torch, l1, l2):
+        differ.append("losses")
+    print(f"repeat [vanilla NeRF, nerf_base.py]: {steps} steps twice from "
+          f"one seed; {len(s1)} state tensors and {l1.numel()} losses "
+          f"compared, {len(differ)} differ {differ[:8]}; final loss "
+          f"{float(l1[-1]):.8f} / {float(l2[-1]):.8f}", flush=True)
+    if differ or len(s1) != len(s2):
+        raise SystemExit(f"repeat [vanilla NeRF]: the two runs differ "
+                         f"({differ})")
+    out["vanilla NeRF"] = steps
+    images, poses, focal = make_synthetic(n_images=16, H=80, W=80)
+    runs = []
+    for _ in range(2):
+        model = rec.build_model("cuda")
+        hist = rec.train(model, images, poses, focal,
+                         n_iters=REC_REPEAT_ITERS, step1=REC_REPEAT_STEP1,
+                         step2=REC_REPEAT_ITERS, step3=REC_REPEAT_ITERS)
+        torch.cuda.synchronize()
+        runs.append((hist, {k: v.detach().cpu()
+                            for k, v in model.state_dict().items()}))
+        del model
+    (h1, s1), (h2, s2) = runs
+    differ = [k for k in s1 if not same_bits(torch, s1[k], s2[k])]
+    if h1["mse"] != h2["mse"]:
+        differ.append("mse")
+    print(f"repeat [Recursive-NeRF]: {len(h1['mse'])} iterations twice from "
+          f"one seed across the transitions {h1['transitions']}; "
+          f"{len(s1)} tensors and the MSEs compared, {len(differ)} differ "
+          f"{differ[:8]}; last MSE {h1['mse'][-1]:.8f} / "
+          f"{h2['mse'][-1]:.8f}", flush=True)
+    if differ or h1["transitions"] != [1] \
+            or len(h1["mse"]) != REC_REPEAT_ITERS:
+        raise SystemExit(f"repeat [Recursive-NeRF]: the two runs differ "
+                         f"({differ}) or the stages ran otherwise "
+                         f"({h1['transitions']})")
+    out["Recursive-NeRF"] = REC_REPEAT_ITERS
+    secs, peak = phase_end(torch, "family repeat", t_phase)
+    return dict(steps=out, phase_s=secs, peak_mib=peak)
+
+
 # Phase 22: graph windows against eager ones from one seed (the headline
 # for 4 windows, the xor hash and the fused-MLP headline for 2: a shape's
 # first window is its warm-up, the second its capture and first replay),
@@ -3712,6 +3799,111 @@ def pixelnerf_repeat(torch):
     return dict(steps=l1.numel(), probe=probe)
 
 
+# Phase 24: the 17 archived probes that make no pallas_call of their own
+# (tools/archive/README.md), through their ports' mains at the archive's
+# sizes, but probe_nan_hard at NAN_HARD_STEPS of its 1024 steps.  Each
+# (probe, argv) runs with the launch counters set to 0 just before it and
+# read just after, and must launch the kernels named beside it; each
+# section without a counterpart, asked for alone, must exit with status 2.
+NAN_HARD_STEPS = 512
+ARCHIVE2_RUNS = (
+    ("probe_march", [], ()),
+    ("probe_fused_mlp", ["jf", "ff", "jg", "fg", "fd"],
+     ("F-MLP", "B-MLP", "D-MLP")),
+    ("probe_f4", ["F4L8", "F2L16"], ("F", "B")),
+    ("probe_ab", ["f8l4", "base"], ("F", "B")),
+    ("probe_ab", ["f8l4", "pallasmlp"], ("F", "B", "F-MLP", "B-MLP")),
+    ("probe_ab", ["f8l4", "proberef"], ("F",)),
+    ("probe_ab", ["f8l4", "sweepparts"], ("F",)),
+    ("probe_step3", [], ("F", "B")),
+    ("probe_step_parts", [], ("F", "B")),
+    ("profile_step", [], ("F", "B")),
+    ("probe_gather", ["a", "b", "c", "d", "e"], ()),
+    ("probe_tpu3", [], ()),
+    ("probe_scatter3", [], ()),
+    ("probe_vmem", [], ()),
+    ("probe_nbr", [], ("F", "B")),
+    ("probe_nbr2", [], ("F", "B")),
+    ("probe_fwd2", [], ()),
+    ("probe_bwd_debug", [], ("B",)),
+    ("probe_nan_hard", ["--steps", str(NAN_HARD_STEPS)], ("F", "B")),
+    ("probe_compile", [], ()),
+)
+ARCHIVE2_ALONE = (("probe_ab", ["f8l4", "nocombine"]), ("probe_vmem", ["opt"]),
+                  ("probe_nbr", ["rows_fwd"]), ("probe_nbr2", ["build"]),
+                  ("probe_fwd2", ["take"]))
+ARCHIVE2_KERNELS = ("F", "B", "F-MLP", "B-MLP", "D-MLP")
+
+
+def run_probe_main(name, argv):
+    """(lines, exit status) of a ported archive probe's main in this
+    process."""
+    import importlib
+
+    mod = importlib.import_module(f"jnerf_tpu_torch.tools.archive.{name}")
+    try:
+        return mod.main(argv), 0
+    except SystemExit as e:
+        return None, e.code
+
+
+def check_archive2_lines(name, lines):
+    """Raise unless every time a line gives is positive and finite, every
+    correctness flag is True, probe_bwd_debug held its three cases and
+    probe_nan_hard ended with its render line."""
+    for ln in lines:
+        if ln.get("ok") is False or (ln.get("ms") is not None
+                                     and not positive(ln["ms"])):
+            raise SystemExit(f"{name}: {ln}")
+    if name == "probe_bwd_debug" and not (
+            len(lines) == 3 and all(ln["ok"] and ln["guards"] and ln["equal"]
+                                    for ln in lines)):
+        raise SystemExit(f"probe_bwd_debug: {lines}")
+    if name == "probe_fused_mlp" and sum("ok" in ln for ln in lines) != 3:
+        raise SystemExit(f"probe_fused_mlp: not every fused section was "
+                         f"held to the plain chain: {lines}")
+    if name == "probe_nan_hard" and lines[-1]["name"] != "render":
+        raise SystemExit(f"probe_nan_hard: no render line: {lines[-1]}")
+
+
+def run_archive2(torch, counters):
+    """Phase 24: ARCHIVE2_RUNS and ARCHIVE2_ALONE in this process; raises
+    if a probe failed, exited with another status than 0 (2 for a section
+    without a counterpart asked for alone), printed a false correctness
+    line or a non-positive time, or ran without its kernels.  Returns the
+    launches of ARCHIVE2_KERNELS by run, and the seconds."""
+    t_phase = phase_start(torch)
+    out = {"launches": {k: {} for k in ARCHIVE2_KERNELS}, "seconds": {}}
+    for name, argv, needs in ARCHIVE2_RUNS:
+        key = " ".join([name] + argv)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        lines, code = run_probe_main(name, argv)
+        torch.cuda.synchronize()
+        out["seconds"][key] = secs = time.perf_counter() - t0
+        counts = read_counts(counters)
+        if code != 0:
+            raise SystemExit(f"{key}: exit status {code}")
+        if any(counts[k] == 0 for k in needs):
+            raise SystemExit(f"{key}: {needs} did not all run: {counts}")
+        check_archive2_lines(name, lines)
+        for k in ARCHIVE2_KERNELS:
+            out["launches"][k][key] = counts[k]
+        print(f"archive probe {key}: {secs:.3f} s, launches "
+              f"{ {k: counts[k] for k in ARCHIVE2_KERNELS} }", flush=True)
+    for name, argv in ARCHIVE2_ALONE:
+        _, code = run_probe_main(name, argv)
+        if code != 2:
+            raise SystemExit(f"{name} {argv}: a section without a "
+                             f"counterpart exited with {code}, not 2")
+    print(f"archive probes: {len(ARCHIVE2_ALONE)} sections without a "
+          "counterpart, each asked for alone, exited with status 2",
+          flush=True)
+    secs, peak = phase_end(torch, "archived probes II", t_phase)
+    out.update(phase_s=secs, peak_mib=peak)
+    return out
+
+
 def build_kernels(torch, cuda_lib):
     """Phase 2: one nvcc per source and the g++ builds of the host-side
     cores (marching tetrahedra, the JPEG codec, the MPEG-4 encoder),
@@ -3841,11 +4033,12 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
                  hash_xor, hash_grid, fused_mlp, mse2psnr, tmp, hs, mlp,
                  launches, fused_launches, mlp_chunk, n_chunk,
                  quality_launches):
-    """Phases 8-22 (the CLI, the xor kernels, the probe refresh, the mesh
+    """Phases 8-24 (the CLI, the xor kernels, the probe refresh, the mesh
     tool, vanilla NeRF, NeuS, Mip-NeRF, Plenoxels, pixelNeRF,
     Recursive-NeRF, data parallelism, the real-capture configs, the
-    measuring tools, the envelope probes, the repeats and the graph
-    windows) in ``tmp``; returns the kernels line."""
+    measuring tools, the envelope probes, the repeats, the graph windows,
+    the families' windows and the other archived probes) in ``tmp``;
+    returns the kernels line."""
     from jnerf_tpu_torch.tools import extract_mesh
 
     cli, xor_runner, scene = run_cli(torch, run_net, hash_nbr, hash_xor,
@@ -3884,9 +4077,11 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
     tools = run_tools(torch, counters)
     env = run_envelope(torch)
     repeat = run_repeat(torch, Runner, ngp_synthetic_cfg, hash_nbr, hash_xor)
+    run_family_repeat(torch, Runner, tmp)
     windows = run_window_graphs(torch, Runner, ngp_synthetic_cfg, counters)
     families = run_family_windows(torch, counters, tmp, neus["scene"], scene,
                                   svox.pop("voxel"))
+    arch2 = run_archive2(torch, counters)["launches"]
     window_launches = {k: {name: c[k] for name, c in
                            windows["launches"].items()}
                        for k in ("F", "B", "F xor", "B xor", "F-MLP",
@@ -3929,6 +4124,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             window_path_launches=window_launches["F"],
             **cap_rows["fwd"],
             fused_path_launches=fused_launches["hash_fwd"],
+            archive2_launches=arch2["F"],
             quality_path_launches=quality_launches["fwd"],
             cli_path_launches=cli["linear_rows"]["train_launches"]["F"],
             probe_path_launches=probe["launches"]["F"],
@@ -3956,6 +4152,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             tools_path_launches=tool_launches["B"],
             **cap_rows["bwd"],
             fused_path_launches=fused_launches["hash_bwd"],
+            archive2_launches=arch2["B"],
             quality_path_launches=quality_launches["bwd"],
             cli_path_launches=cli["linear_rows"]["train_launches"]["B"],
             probe_path_launches=probe["launches"]["B"],
@@ -3969,6 +4166,7 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             f"N={N_SAMPLES} random rows",
             max_abs_err=max(mlp["fwd"]["err"], mlp_chunk["err"]),
             library=no_lib, window_path_launches=window_launches["F-MLP"],
+            archive2_launches=arch2["F-MLP"],
             **{f"N={N_RENDER} random rows": {
                 m: mlp["fwd"][N_RENDER][m]
                 for m in ("ms", "plain_ms", "bound_ms")},
@@ -3979,14 +4177,17 @@ def later_phases(torch, Runner, ngp_synthetic_cfg, run_net, hash_nbr,
             "fused_mlp_bwd (B-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:123",
             fused_launches["bwd"], dict(mlp["bwd"][N_SAMPLES], library_ms=None),
             f"N={N_SAMPLES}", max_abs_err=mlp["bwd"]["err"], library=no_lib,
-            window_path_launches=window_launches["B-MLP"]),
+            window_path_launches=window_launches["B-MLP"],
+            archive2_launches=arch2["B-MLP"]),
         kernel_row(
             "fused_density_mlp (D-MLP)", src, "jnerf_tpu/ops/fused_mlp.py:242",
             launches["den"] + fused_launches["den"] + quality_launches["den"],
             dict(mlp["den"][N_SAMPLES], library_ms=None), f"N={N_SAMPLES}",
             on_path="none: neither package calls it on a path; phase 3 "
-            "launches it against its twin",
+            "launches it against its twin, phase 24's probe_fused_mlp fd "
+            "against the plain chain",
             max_abs_err=mlp["den"]["err"], library=no_lib,
+            archive2_launches=arch2["D-MLP"],
             **{f"N={N_RENDER}": {m: mlp["den"][N_RENDER][m]
                                  for m in ("ms", "plain_ms", "bound_ms")}}),
         kernel_row(

@@ -275,32 +275,49 @@ def encode_fwd(spec: HashGridSpec, table: torch.Tensor, pos: torch.Tensor,
 encode_fwd.launches = 0
 
 
-def _bwd(spec: HashGridSpec, pos, g, plan_only: bool):
-    """Launch kernel B (plan_only: its sort alone): (grad, work)."""
+def _bwd(spec: HashGridSpec, pos, g, plan_only: bool, grad=None,
+         work=None):
+    """Launch kernel B (plan_only: its sort alone): (grad, work).  The
+    caller may pass the output ``grad`` and the work space ``work``."""
     L, F = spec.n_levels, spec.n_features_per_level
     n = pos.shape[0]
     _require_cuda_inputs(spec, pos, g=(g, (n, F * L)))
-    work = torch.empty(bwd_layout(spec, n, False)[0], dtype=torch.int32,
-                       device=pos.device)
-    grad = torch.empty((0 if plan_only else spec.n_entries, F),
-                       dtype=torch.float32, device=pos.device)
+    size = bwd_layout(spec, n, False)[0]
+    if work is None:
+        work = torch.empty(size, dtype=torch.int32, device=pos.device)
+    elif (work.dtype != torch.int32 or tuple(work.shape) != (size,)
+          or work.device != pos.device or not work.is_contiguous()):
+        raise ValueError(f"work must be a contiguous [{size}] int32 tensor "
+                         f"on {pos.device}")
+    if grad is None:
+        grad = torch.empty((0 if plan_only else spec.n_entries, F),
+                           dtype=torch.float32, device=pos.device)
+    else:
+        _require_cuda_inputs(spec, pos, grad=(grad, (spec.n_entries, F)))
     _HASH_BWD(pos.get_device(), pos.data_ptr(), g.data_ptr(), grad.data_ptr(),
               work.data_ptr(), n, L, F, *_const_ptrs(level_consts(spec)),
               int(plan_only))
     return grad, work
 
 
-def grad_table(spec: HashGridSpec, pos: torch.Tensor,
-               g: torch.Tensor) -> torch.Tensor:
+def grad_table(spec: HashGridSpec, pos: torch.Tensor, g: torch.Tensor,
+               out: torch.Tensor | None = None,
+               work: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel B: table gradient [n_entries, F] f32, each entry's
     contributions summed in `grad_table_plain`'s order, so equal to the
-    twin bit for bit on every launch."""
+    twin bit for bit on every launch.  ``out`` ([n_entries, F] f32), if
+    given, receives it, and ``work`` (int32, ``bwd_layout``'s size), if
+    given, is the work space: a check can place both between guard
+    zones."""
     if pos.device.type == "cpu":
-        return grad_table_plain(spec, pos, g)
+        grad = grad_table_plain(spec, pos, g)
+        return grad if out is None else out.copy_(grad)
     if pos.shape[0] == 0:  # nothing to sum
+        if out is not None:
+            return out.zero_()
         return torch.zeros((spec.n_entries, spec.n_features_per_level),
                            dtype=torch.float32, device=pos.device)
-    grad, _ = _bwd(spec, pos, g, False)
+    grad, _ = _bwd(spec, pos, g, False, out, work)
     grad_table.launches += 1
     return grad
 

@@ -197,6 +197,27 @@ def test_grad_table_writes_inside_its_buffers(dev, name, n, xor):
                        _twin_grad(spec, pos, g, xor=xor, bf16=True))
 
 
+def test_grad_table_takes_its_output_and_work_space(dev):
+    """``grad_table(out=, work=)`` (the archived bwd_debug probe's call)
+    launches kernel B into the caller's buffers, counts one launch and
+    returns ``out`` equal to the twin; a buffer of another size or dtype
+    is refused."""
+    spec = _spec("f8l4")
+    _, pos, g = _inputs(spec, dev, n=RAGGED_B)
+    F = spec.n_features_per_level
+    out = torch.full((spec.n_entries, F), -7.0, device=dev)
+    work = torch.empty(hash_nbr.bwd_layout(spec, RAGGED_B, False)[0],
+                       dtype=torch.int32, device=dev)
+    before = hash_nbr.grad_table.launches
+    got = hash_nbr.grad_table(spec, pos, g, out=out, work=work)
+    assert got is out and hash_nbr.grad_table.launches == before + 1
+    assert torch.equal(out.cpu(), _twin_grad(spec, pos, g))
+    with pytest.raises(ValueError):
+        hash_nbr.grad_table(spec, pos, g, work=work[1:])
+    with pytest.raises(ValueError):
+        hash_nbr.grad_table(spec, pos, g, out=out.double())
+
+
 @pytest.mark.parametrize("samples", ["uniform", "clustered"])
 @pytest.mark.parametrize("name", list(BIG_SPECS))
 def test_encode_bf16_is_f32_rounded(dev, name, samples):
